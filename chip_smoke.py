@@ -5,12 +5,18 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-It builds the package's CUDA kernels from ``xrft_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, drives the
-main path (the windowed, linearly detrended 2-D power spectrum of
-8 x 4096 x 4096 float32 fields) through ``xrft_tpu_torch.power_spectrum`` and
-checks it against the same pipeline in float64 through the plain routes, and
-times the main path and each kernel beside its plain version.  Every phase
+It builds the package's CUDA kernels from ``xrft_tpu_torch/csrc`` with nvcc
+(one nvcc per source, all at once), holds each kernel against its plain
+PyTorch version on the card, and drives two paths at full width, each
+checked against the same pipeline in float64 through the plain routes:
+
+  * the main path, the windowed, linearly detrended 2-D power spectrum of
+    8 x 4096 x 4096 float32 fields (``xrft_tpu_torch.power_spectrum``);
+  * the isotropic path, the same spectrum summed into 1024 radial bins
+    (``isotropic_power_spectrum``), with the 2048^2 grid of config 3 and the
+    isotropic cross spectrum of a (2, 4096, 4096) pair.
+
+It times both paths and each kernel beside its plain version.  Every phase
 raises on failure; nothing is caught.  Its output ends with the card's name
 and power limit, one JSON line on the kernels, and the JSON status line.
 It fails, and prints no result, without a CUDA device or outside a checkout.
@@ -21,6 +27,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -28,11 +35,17 @@ import torch
 MAIN_SHAPE = (8, 4096, 4096)   # bench.py's flagship
 ENTRY_SHAPE = (4, 256, 256)    # __graft_entry__.entry()
 MAIN_KW = dict(dim=["y", "x"], window="hann", detrend="linear")
+ISO_KW = dict(MAIN_KW, truncate=True)
+CONFIG3_SHAPE = (2048, 2048)   # bench.py's config 3 large grid
+CONFIG3_KW = dict(dim=["y", "x"], truncate=True)   # 512 bins
+CROSS_SHAPE = (2, 4096, 4096)
 RUNS = 7                       # timed runs per measurement, after warm-up
+SOURCES = ("mirror", "fft_fourstep", "binned_sum")
+T0 = time.perf_counter()
 
 
 def log(*args):
-    print(*args, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f} s]", *args, flush=True)
 
 
 def card_line() -> str:
@@ -94,6 +107,249 @@ def labeled(xt, data):
                 "y": np.arange(NY) * 0.5, "x": np.arange(NX) * 0.5})
 
 
+def config3_field(xt):
+    """bench.py's config 3 large grid: one 2048^2 field, unit spacing."""
+    n3 = CONFIG3_SHAPE[0]
+    return xt.LabeledArray(field(CONFIG3_SHAPE, 9), dims=("y", "x"),
+                           coords={"y": np.arange(n3) * 1.0,
+                                   "x": np.arange(n3) * 1.0})
+
+
+def radial_codes(binning, n, nbins, dx):
+    """pd.cut codes of the fftshifted radial wavenumber of an n x n grid."""
+    k = np.fft.fftshift(np.fft.fftfreq(n, dx))
+    return binning.cut_codes(np.sqrt(k[:, None] ** 2 + k[None, :] ** 2), nbins)
+
+
+def odd_codes(binning):
+    """1001 x 999 radial codes into 250 bins, every 97th point dropped."""
+    k0 = np.fft.fftshift(np.fft.fftfreq(1001, 0.3))
+    k1 = np.fft.fftshift(np.fft.fftfreq(999, 0.3))
+    codes, nbins = binning.cut_codes(
+        np.sqrt(k0[:, None] ** 2 + k1[None, :] ** 2), 250)
+    codes[::97] = -1
+    return codes, nbins
+
+
+def bincount_oracle(x, codes, nbins):
+    """float64 per-bin sums by torch.bincount on the card, per component."""
+    c = torch.as_tensor(codes.astype(np.int64), device=x.device)
+    keep = c >= 0
+    ck = c[keep]
+
+    def real(v):
+        rows = [torch.bincount(ck, weights=r[keep].double(), minlength=nbins)
+                for r in v.reshape(-1, v.shape[-1])]
+        return torch.stack(rows).reshape(v.shape[:-1] + (nbins,))
+
+    if x.is_complex():
+        return torch.complex(real(x.real), real(x.imag))
+    return real(x)
+
+
+def k3_phase(binning, card):
+    """K3 against its plain version and a float64 bincount oracle, with two
+    launches compared bit for bit, then K3 alone timed against plain."""
+    result = {}
+    n, n3 = MAIN_SHAPE[-1], CONFIG3_SHAPE[-1]
+    cases = (("full", radial_codes(binning, n, n // 4, 0.5), MAIN_SHAPE[:1]),
+             ("config3", radial_codes(binning, n3, n3 // 4, 1.0), (1,)),
+             ("odd", odd_codes(binning), (3,)))
+    for name, (codes, nbins), batch in cases:
+        plan = binning.BinPlan(codes, nbins)
+        t0 = time.perf_counter()
+        plan.on("cuda")
+        log(f"phase 6: K3 plan {name} ({codes.size} points, {nbins} bins) "
+            f"built and copied in {time.perf_counter() - t0:.3f} s")
+        shape = batch + (codes.size,)
+        for dtype in (torch.float32, torch.float64, torch.complex64):
+            x = field(shape, 7, dtype)
+            got = binning.binned_sum(x, plan)
+            again = binning.binned_sum(x, plan)
+            plain = binning.binned_sum_plain(x, plan)
+            ref = bincount_oracle(x, codes, nbins)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == batch + (nbins,),
+                  f"K3 {name} {dtype}: output {got.dtype} {tuple(got.shape)}")
+            check(torch.equal(got, again),
+                  f"K3 {name} {dtype}: two launches differ")
+            single = dtype in (torch.float32, torch.complex64)
+            e_ref = rel_err(got, ref)
+            e_plain = rel_err(got, plain.to(ref.dtype))
+            # the plain route's float32 prefix difference carries about
+            # 2^-24 of the running prefix, hence its wider limit
+            lim_ref, lim_plain = (2e-6, 1e-5) if single else (1e-12, 1e-12)
+            check(e_ref <= lim_ref and e_plain <= lim_plain,
+                  f"K3 {name} {dtype}: rel err {e_ref:.3e} vs float64 oracle "
+                  f"(limit {lim_ref}), {e_plain:.3e} vs plain "
+                  f"(limit {lim_plain})")
+            if name == "full" and dtype == torch.float32:
+                result["max_abs_err"] = (got - plain).abs().max().item()
+            log(f"phase 6: K3 {name} {tuple(shape)} {dtype}: rel err vs "
+                f"float64 bincount {e_ref:.3e} (limit {lim_ref}), vs plain "
+                f"{e_plain:.3e} (limit {lim_plain}); two launches "
+                f"bit-identical")
+            del x, got, again, plain, ref
+        if name != "odd":
+            x = field(shape, 8)
+            tp, tk = ab_ms(lambda: binning.binned_sum_plain(x, plan),
+                           lambda: binning.binned_sum(x, plan))
+            gbytes = (codes.size * 4 + x.numel() * 4) / 1e9
+            log(f"phase 6: K3 {name} {tuple(shape)} float32: kernel "
+                f"{tk:.3f} ms ({gbytes / tk * 1e3:.0f} GB/s of the "
+                f"{gbytes:.3f} GB of index and data it reads), plain "
+                f"{tp:.3f} ms [{card}]")
+            if name == "full":
+                result["ms"], result["plain_ms"] = tk, tp
+            del x
+    return result
+
+
+def isotropic_phase(xt, binning, mirror):
+    """The isotropic path at full width against the float64 pipeline
+    through the plain routes, config 3's 2048^2 grid, and the isotropic
+    cross spectrum; returns K3's launches on the isotropic path."""
+    from xrft_tpu_torch.config import (binned_sum_impl, fft_impl,
+                                       psd_mirror_impl)
+
+    def plain64(da, **kw):
+        da64 = da.copy(data=da.data.double())
+        with fft_impl("torch"), psd_mirror_impl("plain"), \
+                binned_sum_impl("plain"):
+            return xt.isotropic_power_spectrum(da64, **kw)
+
+    da = labeled(xt, field(MAIN_SHAPE, 0))
+    ref = plain64(da, **ISO_KW)
+    mirror.mirror_psd.launches = 0
+    binning.binned_sum.launches = 0
+    iso = xt.isotropic_power_spectrum(da, **ISO_KW)
+    torch.cuda.synchronize()
+    launches = {"binned_sum": binning.binned_sum.launches,
+                "mirror_psd": mirror.mirror_psd.launches}
+    log(f"phase 7: isotropic path {MAIN_SHAPE}: kernel launches {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the isotropic path was not launched: {launches}")
+    nbins = MAIN_SHAPE[-1] // 4
+    check(iso.dims == ("time", "freq_r")
+          and iso.shape == (MAIN_SHAPE[0], nbins)
+          and iso.dtype == torch.float32, f"unexpected output {iso!r}")
+    check(bool(torch.isfinite(iso.data).all()), "non-finite isotropic PSD")
+    kr, kr_ref = iso.coords["freq_r"].values, ref.coords["freq_r"].values
+    check(np.array_equal(kr, kr_ref, equal_nan=True),
+          "freq_r differs from the float64 run's")
+    err = rel_err(iso.data, ref.data)
+    check(err <= 1e-5, f"isotropic path: rel err {err:.3e} vs float64 > 1e-5")
+    ps = xt.power_spectrum(da, **MAIN_KW)
+    tot_ps = ps.data.double().sum(dim=(1, 2))
+    cons = ((iso.data.double().sum(dim=1) - tot_ps).abs() / tot_ps).max()
+    check(cons.item() <= 1e-5, f"conservation rel err {cons.item():.3e}")
+    log(f"phase 7: isotropic path: rel err vs float64 plain pipeline "
+        f"{err:.3e} (limit 1e-5); sum(iso) vs sum(PSD) rel err "
+        f"{cons.item():.3e} (limit 1e-5); freq_r equal to the float64 run's, "
+        f"{int(np.isnan(kr).sum())} NaN (beyond Nyquist) of {nbins}")
+    del da, ref, iso, ps
+
+    da3 = config3_field(xt)
+    ref3 = plain64(da3, **CONFIG3_KW)
+    before = binning.binned_sum.launches
+    iso3 = xt.isotropic_power_spectrum(da3, **CONFIG3_KW)
+    torch.cuda.synchronize()
+    err3 = rel_err(iso3.data, ref3.data)
+    check(binning.binned_sum.launches > before
+          and iso3.shape == (CONFIG3_SHAPE[0] // 4,) and err3 <= 1e-5,
+          f"config 3: rel err {err3:.3e} vs float64")
+    log(f"phase 7: config 3 {CONFIG3_SHAPE}: rel err vs float64 {err3:.3e} "
+        f"(limit 1e-5)")
+    del da3, ref3, iso3
+
+    # the cross path: self cross spectrum of a (2, 4096, 4096) pair
+    dac = labeled(xt, field(CROSS_SHAPE, 5))
+    before = binning.binned_sum.launches
+    cs = xt.isotropic_cross_spectrum(dac, dac, **ISO_KW)
+    n_cross = binning.binned_sum.launches - before
+    ps_iso = xt.isotropic_power_spectrum(dac, **ISO_KW)
+    torch.cuda.synchronize()
+    # isotropize sums the complex cross spectrum as it is, so K3 ran on
+    # complex64 data if it ran and the result is complex64
+    check(n_cross > 0 and cs.dtype == torch.complex64,
+          f"cross path: {n_cross} K3 launches, dtype {cs.dtype}")
+    errc = rel_err(cs.data.real, ps_iso.data.double())
+    check(errc <= 1e-6, f"cross path: Re(iso cross) vs iso PSD {errc:.3e}")
+    log(f"phase 7: isotropic cross spectrum {CROSS_SHAPE}: K3 ran "
+        f"{n_cross}x on complex64; Re(self cross) vs isotropic PSD rel err "
+        f"{errc:.3e} (limit 1e-6)")
+    return launches["binned_sum"]
+
+
+def device_split(fn, label, card, calls=3):
+    """Device time per kernel of fn() from one torch.profiler run (kernel
+    events only: an aten op's own entry repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and t > 0:
+            rows.append((t / 1e3 / calls, e.key))
+    rows.sort(reverse=True)
+    dev = sum(t for t, _ in rows)
+    if not rows:
+        log(f"{label}: the profiler recorded no device time")
+        return
+    log(f"{label}: device {dev:.3f} ms per call against {wall:.3f} ms of "
+        f"wall time under the profiler, idle share {1 - dev / wall:.1%} "
+        f"[{card}]")
+    for t, name in rows[:14]:
+        log(f"    {t:8.3f} ms  {name[:100]}")
+
+
+def isotropic_timings(xt, binning, card):
+    from xrft_tpu_torch.config import binned_sum_impl
+    from xrft_tpu_torch.isotropic import _radial_plan
+
+    da = labeled(xt, field(MAIN_SHAPE, 0))
+
+    def iso(impl, da=da, kw=ISO_KW):
+        def run():
+            with binned_sum_impl(impl):
+                xt.isotropic_power_spectrum(da, **kw)
+        return run
+
+    _radial_plan.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iso("kernel")()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    tp, tk = ab_ms(iso("plain"), iso("kernel"))
+    t_ps = wall_ms(lambda: xt.power_spectrum(da, **MAIN_KW))
+    log(f"phase 8: isotropic path {MAIN_SHAPE}: first call (host plan "
+        f"built) {first:.1f} ms; steady state binned_sum_impl='kernel' "
+        f"{tk:.3f} ms, 'plain' {tp:.3f} ms; power_spectrum alone "
+        f"{t_ps:.3f} ms [{card}]")
+    device_split(iso("kernel"), "phase 8: isotropic path, 'kernel'", card)
+    device_split(iso("plain"), "phase 8: isotropic path, 'plain'", card)
+    del da
+
+    da3 = config3_field(xt)
+    tp3, tk3 = ab_ms(iso("plain", da3, CONFIG3_KW),
+                     iso("kernel", da3, CONFIG3_KW))
+    log(f"phase 8: config 3 {CONFIG3_SHAPE}: binned_sum_impl='kernel' "
+        f"{tk3:.3f} ms, 'plain' {tp3:.3f} ms [{card}]")
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -101,7 +357,7 @@ def main():
                          "(torch.cuda.is_available() is false)")
     import xrft_tpu_torch as xt
     from xrft_tpu_torch.config import fft_impl, psd_mirror_impl
-    from xrft_tpu_torch.ops import _build, fft_fourstep, mirror
+    from xrft_tpu_torch.ops import _build, binning, fft_fourstep, mirror
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -109,10 +365,12 @@ def main():
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    for name in ("mirror", "fft_fourstep"):
-        _build.load(name)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for job in [pool.submit(_build.load, name) for name in SOURCES]:
+            job.result()
     log(f"phase 1: csrc built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc per source: {_build.build_seconds or 'up to date'})")
+        f"(nvcc per source, in parallel: "
+        f"{_build.build_seconds or 'up to date'})")
 
     # ---- phase 2: K1 against its plain version ---------------------------
     k1_err = 0.0
@@ -254,8 +512,12 @@ def main():
             f"{t_cufft:.3f} ms [{card}]")
         del x
 
-    log(card)
-    log(json.dumps({"kernels": [
+    k3 = k3_phase(binning, card)
+    k3["launches"] = isotropic_phase(xt, binning, mirror)
+    isotropic_timings(xt, binning, card)
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": [
         {"name": "mirror_psd", "route": "cuda",
          "source": "xrft_tpu_torch/csrc/mirror.cu",
          "replaces": "xrft_tpu/ops/pallas_mirror.py:82",
@@ -266,10 +528,13 @@ def main():
          "replaces": "xrft_tpu/ops/pallas_fft.py:284",
          "launches": launches["fft_fourstep"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain},
-    ]}))
-    log(json.dumps({"ok": True, "device": {
+        {"name": "binned_sum", "route": "cuda",
+         "source": "xrft_tpu_torch/csrc/binned_sum.cu",
+         "replaces": "xrft_tpu/ops/binning.py:77", **k3},
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from xrft_tpu_torch import LabeledArray, power_spectrum
-from xrft_tpu_torch.config import fft_impl, psd_mirror_impl
-from xrft_tpu_torch.ops import fft_fourstep, mirror
+from xrft_tpu_torch import (LabeledArray, isotropic_cross_spectrum,
+                            isotropic_power_spectrum, power_spectrum)
+from xrft_tpu_torch.config import binned_sum_impl, fft_impl, psd_mirror_impl
+from xrft_tpu_torch.ops import binning, fft_fourstep, mirror
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +73,77 @@ def test_kernels_reject_strided_input(cuda):
     F = torch.zeros((4, 16, 9), device=cuda, dtype=torch.complex64)
     with pytest.raises(ValueError, match="contiguous"):
         mirror.mirror_psd(F.transpose(0, 1), 16, True, 1.0)
+    plan = binning.BinPlan(np.arange(16) % 3, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        binning.binned_sum(torch.zeros((16, 4), device=cuda).T, plan)
+
+
+def _radial_codes(n, nbins, dx=0.5):
+    k = np.fft.fftshift(np.fft.fftfreq(n, dx))
+    return binning.cut_codes(np.sqrt(k[:, None] ** 2 + k[None, :] ** 2),
+                             nbins)
+
+
+def _odd_codes():
+    """1001 x 999 radial codes into 250 bins, with a few forced to -1."""
+    k0 = np.fft.fftshift(np.fft.fftfreq(1001, 0.3))
+    k1 = np.fft.fftshift(np.fft.fftfreq(999, 0.3))
+    codes, nbins = binning.cut_codes(
+        np.sqrt(k0[:, None] ** 2 + k1[None, :] ** 2), 250)
+    codes[::97] = -1
+    return codes, nbins
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["odd", "random", "full"])
+def test_binned_sum_kernel_matches_float64_and_repeats(cuda, case, dtype):
+    if case == "odd":
+        (codes, nbins), batch = _odd_codes(), (3,)
+    elif case == "random":
+        rng = np.random.RandomState(0)
+        codes, nbins, batch = rng.randint(-1, 37, 5001), 37, (2, 3)
+    else:
+        (codes, nbins), batch = _radial_codes(4096, 1024), (8,)
+    plan = binning.BinPlan(codes, nbins)
+    g = torch.Generator(device=cuda).manual_seed(nbins)
+    x = torch.randn(batch + (codes.size,), generator=g, device=cuda,
+                    dtype=dtype)
+    before = binning.binned_sum.launches
+    got = binning.binned_sum(x, plan)
+    again = binning.binned_sum(x, plan)
+    assert binning.binned_sum.launches == before + 2
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    ref = binning.binned_sum_plain(x.to(wide), plan)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == batch + (nbins,)
+    assert torch.equal(got, again)                       # deterministic
+    tol = 2e-6 if dtype in (torch.float32, torch.complex64) else 1e-12
+    assert _rel(got.to(wide), ref) <= tol
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_isotropic_path_through_kernels(cuda, impl):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 256, 256), generator=g, device=cuda)
+    coords = {"y": np.arange(256) * 0.5, "x": np.arange(256) * 0.5}
+    kw = dict(dim=["y", "x"], window="hann", detrend="linear", truncate=True)
+    da = LabeledArray(x, ("time", "y", "x"), coords)
+    before = binning.binned_sum.launches
+    with binned_sum_impl(impl):
+        got = isotropic_power_spectrum(da, **kw)
+        cross = isotropic_cross_spectrum(da, da, **kw)
+    assert binning.binned_sum.launches == before + (2 if impl == "kernel"
+                                                    else 0)
+    with binned_sum_impl("plain"), psd_mirror_impl("plain"):
+        ref = isotropic_power_spectrum(
+            LabeledArray(x.double(), ("time", "y", "x"), coords), **kw)
+    torch.cuda.synchronize()
+    assert got.data.is_cuda and got.dims == ref.dims == ("time", "freq_r")
+    np.testing.assert_array_equal(got.coords["freq_r"].values,
+                                  ref.coords["freq_r"].values)
+    assert _rel(got.data.double(), ref.data) <= 2e-6
+    assert _rel(cross.data.real.double(), ref.data) <= 2e-6
 
 
 @pytest.mark.parametrize("impl", ["torch", "kernel"])

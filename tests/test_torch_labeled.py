@@ -202,6 +202,12 @@ def test_entry_shape_runs_with_jax_and_pandas_blocked():
         " detrend='linear')\n"
         "assert ps.dims == ('time', 'freq_y', 'freq_x'), ps.dims\n"
         "assert ps.shape == (B, N, N) and np.isfinite(ps.values).all()\n"
+        "iso = xt.isotropic_power_spectrum(da, dim=['y', 'x'], window='hann',"
+        " detrend='linear', truncate=True)\n"
+        "assert iso.dims == ('time', 'freq_r') and iso.shape == (B, N // 4)\n"
+        "assert np.isfinite(iso.values).all()\n"
+        "assert 'pandas' not in {m.split('.')[0] for m, v in"
+        " sys.modules.items() if v is not None}\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items()"
         " if v is not None}\n"
         "print('ok')\n"

@@ -1,7 +1,8 @@
 """Process-wide configuration of xrft_tpu_torch.
 
-Counterpart of ``xrft_tpu/config.py``, reduced to the two knobs that mean
-something on a CUDA device.  Everything else in the JAX package's config
+Counterpart of ``xrft_tpu/config.py``, reduced to the knobs that mean
+something on a CUDA device: which route each hand-written kernel's step
+takes.  Everything else in the JAX package's config
 steers TPU-only machinery (matmul engines, split complex, df64) that this
 package does not carry.
 """
@@ -13,6 +14,7 @@ from contextlib import contextmanager
 
 FFT_IMPLS = ("torch", "kernel")
 MIRROR_IMPLS = ("kernel", "plain")
+BINNED_SUM_IMPLS = ("kernel", "plain")
 
 
 @dataclasses.dataclass
@@ -31,6 +33,14 @@ class _Config:
     #   "plain"  - the general Hermitian expansion in torch ops
     #              (spectra._hermitian_expand), for any geometry.
     psd_mirror_impl: str = "kernel"
+    # Per-bin sums of isotropize (the radial binning):
+    #   "kernel" - the hand-written sorted segmented reduction K3
+    #              (ops/binning.binned_sum) on a CUDA tensor.
+    #   "plain"  - the JAX package's non-TPU route in torch ops
+    #              (ops/binning.binned_sum_plain): a one-hot matmul for
+    #              small grids, a sorted prefix difference for large ones.
+    # A CPU tensor takes the plain route under either value.
+    binned_sum_impl: str = "kernel"
 
 
 config = _Config()
@@ -63,3 +73,15 @@ def psd_mirror_impl(impl: str):
         yield
     finally:
         config.psd_mirror_impl = old
+
+
+@contextmanager
+def binned_sum_impl(impl: str):
+    """Temporarily set ``config.binned_sum_impl``."""
+    _check(impl, BINNED_SUM_IMPLS, "binned_sum_impl")
+    old = config.binned_sum_impl
+    config.binned_sum_impl = impl
+    try:
+        yield
+    finally:
+        config.binned_sum_impl = old

@@ -134,8 +134,9 @@ class LabeledArray:
 
     @property
     def values(self) -> np.ndarray:
-        """A host numpy copy of the data."""
-        return self.data.detach().cpu().numpy()
+        """A host numpy copy of the data (lazy conjugate and negative views
+        resolved)."""
+        return self.data.detach().cpu().resolve_conj().resolve_neg().numpy()
 
     def get_axis_num(self, dim):
         if isinstance(dim, (list, tuple)):
@@ -206,6 +207,11 @@ class LabeledArray:
 
     def sum(self, dim=None):
         return self._reduce(torch.sum, dim)
+
+    # ---------------------------------------------------------- elementwise
+    def conj(self) -> "LabeledArray":
+        """Complex conjugate (a lazy torch view; real data unchanged)."""
+        return self.copy(data=self.data.conj())
 
     # -------------------------------------------- dim-aligned binary ops
     def _binary(self, other, op, reflexive=False) -> "LabeledArray":

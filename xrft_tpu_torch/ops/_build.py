@@ -27,7 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+# one lock per source, so that different sources can build in parallel
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 # seconds spent compiling in this process, by source name
 build_seconds: dict[str, float] = {}
 
@@ -49,8 +51,11 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu`` (built on first
-    use, cached per process)."""
-    with _lock:
+    use, cached per process).  Calls for different sources from several
+    threads build in parallel."""
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name)))

@@ -1,0 +1,256 @@
+"""Binned sums over static frequency grids, and K3 (``csrc/binned_sum.cu``).
+
+Counterpart of ``xrft_tpu/ops/binning.py``.  The bin of each point depends
+only on the static frequency grid, so it is computed once on the host:
+:func:`cut_codes` reproduces ``pd.cut``'s equal-width, right-closed codes in
+numpy alone (code -1: out of range or NaN), and a :class:`BinPlan` holds the
+codes with their sorted plan and its device copies.
+
+:func:`binned_sum` launches kernel K3 for a CUDA tensor and runs
+:func:`binned_sum_plain`, the JAX package's non-TPU route in torch, for a CPU
+tensor; any other device raises.  The plain version takes the one-hot matmul
+for small grids and the sorted gather with a blocked prefix difference for
+large ones; it uses no ``index_add_``/``scatter_add_``, so it repeats bit
+for bit on the card as well.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+__all__ = ["BinPlan", "binned_mean_np", "binned_sum", "binned_sum_plain",
+           "cut_codes"]
+
+# above this many one-hot entries (points * bins) the plain version takes the
+# sorted route, as ``xrft_tpu/ops/binning.py:63`` does
+ONEHOT_MAX_ELEMENTS = 64 * 1024 * 1024
+# points of one bin that one K3 block reduces; longer bins are split into
+# chunks of this size whose partial sums a second pass adds in order
+CHUNK = 4096
+# rows one K3 block reduces together, reading the plan once for all of them
+# (``csrc/binned_sum.cu``'s RB)
+ROWS_PER_BLOCK = 8
+_ENTRY = {torch.float32: "binned_sum_f32", torch.float64: "binned_sum_f64"}
+
+
+def _codes_dtype(nbins: int):
+    """The smallest int dtype pandas gives categorical codes of nbins
+    categories (``pandas.core.dtypes.cast.coerce_indexer_dtype``)."""
+    for dt in (np.int8, np.int16, np.int32):
+        if nbins < np.iinfo(dt).max:
+            return dt
+    return np.int64
+
+
+def cut_codes(values: np.ndarray, nbins: int):
+    """``pd.cut(np.ravel(values), nbins)`` codes, equal-width and
+    right-closed, in numpy alone: (codes, nbins), with code -1 for NaN and
+    out-of-range points (``xrft_tpu/ops/binning.py:30-36``)."""
+    v = np.ravel(values)
+    if nbins < 1:
+        raise ValueError("`bins` should be a positive integer.")
+    if v.size == 0:
+        raise ValueError("Cannot cut empty array")
+    mn, mx = np.nanmin(v), np.nanmax(v)
+    if np.isinf(mn) or np.isinf(mx):
+        raise ValueError(
+            "cannot specify integer `bins` when input data contains infinity")
+    if mn == mx:
+        mn -= 0.001 * abs(mn) if mn != 0 else 0.001
+        mx += 0.001 * abs(mx) if mx != 0 else 0.001
+        bins = np.linspace(mn, mx, nbins + 1, endpoint=True)
+    else:
+        bins = np.linspace(mn, mx, nbins + 1, endpoint=True)
+        bins[0] -= (mx - mn) * 0.001
+    ids = np.searchsorted(bins, v, side="left")
+    codes = ids.astype(_codes_dtype(nbins)) - 1
+    codes[np.isnan(v) | (ids == nbins + 1)] = -1
+    return codes, nbins
+
+
+def binned_mean_np(values: np.ndarray, codes: np.ndarray,
+                   nbins: int) -> np.ndarray:
+    """Host per-bin mean (for static quantities like the radial
+    coordinate); empty bins give 0 (``xrft_tpu/ops/binning.py:39-49``)."""
+    flat = np.ravel(values)
+    mask = codes >= 0
+    sums = np.bincount(codes[mask], weights=flat[mask], minlength=nbins)
+    counts = np.bincount(codes[mask], minlength=nbins)
+    out = np.zeros(nbins, dtype=np.float64)
+    nz = counts > 0
+    out[nz] = sums[nz] / counts[nz]
+    return out
+
+
+def _onehot(codes: np.ndarray, nbins: int, rdtype) -> np.ndarray:
+    oh = np.zeros((codes.size, nbins), dtype=rdtype)
+    mask = codes >= 0
+    oh[np.nonzero(mask)[0], codes[mask]] = 1.0
+    return oh
+
+
+def _sorted_plan(codes: np.ndarray, nbins: int):
+    """A stable argsort placing same-bin points contiguously (dropped, code
+    -1, points first) and the per-bin segment boundaries
+    (``xrft_tpu/ops/binning.py:66-74``)."""
+    order = np.argsort(codes, kind="stable")
+    sorted_codes = codes[order]
+    starts = np.searchsorted(sorted_codes, np.arange(nbins), side="left")
+    ends = np.searchsorted(sorted_codes, np.arange(nbins), side="right")
+    return order, starts, ends
+
+
+def _chunk_table(starts: np.ndarray, ends: np.ndarray, chunk: int):
+    """K3's work split: chunk k reduces sorted positions
+    ``[chunk_off[k], chunk_off[k+1])``, all of one bin and at most ``chunk``
+    long; bin b owns chunks ``[bin_chunk[b], bin_chunk[b+1])``."""
+    nch = -(-(ends - starts) // chunk)
+    bin_chunk = np.concatenate([[0], np.cumsum(nch)])
+    first = np.repeat(bin_chunk[:-1], nch)
+    chunk_start = np.repeat(starts, nch) + chunk * (np.arange(first.size)
+                                                    - first)
+    chunk_off = np.concatenate([chunk_start, ends[-1:]])
+    return chunk_off.astype(np.int32), bin_chunk.astype(np.int32)
+
+
+class BinPlan:
+    """The static binning of ``size`` points into ``nbins`` bins: the codes,
+    their sorted plan and K3's chunk table (host, built at first use), and
+    the copies of those on each device they were used on."""
+
+    def __init__(self, codes: np.ndarray, nbins: int):
+        self.codes = np.ravel(codes)
+        self.nbins = int(nbins)
+        if self.codes.size >= 2 ** 31:
+            raise ValueError(f"{self.codes.size} points exceed int32 indices")
+        self._host = None
+        self._dev = {}
+
+    @property
+    def size(self) -> int:
+        return self.codes.size
+
+    def host(self) -> dict:
+        """order (int32), starts/ends (int64), chunk_off/bin_chunk (int32)."""
+        if self._host is None:
+            order, starts, ends = _sorted_plan(self.codes, self.nbins)
+            chunk_off, bin_chunk = _chunk_table(starts, ends, CHUNK)
+            self._host = {"order": order.astype(np.int32), "starts": starts,
+                          "ends": ends, "chunk_off": chunk_off,
+                          "bin_chunk": bin_chunk}
+        return self._host
+
+    def on(self, device) -> dict:
+        """The host plan as tensors on ``device``, copied there once."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        got = self._dev.get(device)
+        if got is None:
+            got = {k: torch.as_tensor(v, device=device)
+                   for k, v in self.host().items()}
+            self._dev[device] = got
+        return got
+
+
+def _check(x: torch.Tensor, plan: BinPlan, what: str):
+    if x.dtype not in (torch.float32, torch.float64, torch.complex64,
+                       torch.complex128):
+        raise ValueError(f"{what} takes float32/float64/complex64/complex128,"
+                         f" got {x.dtype}")
+    if x.ndim < 1 or x.shape[-1] != plan.size:
+        raise ValueError(f"{what}: trailing axis of {tuple(x.shape)} is not "
+                         f"the plan's {plan.size} points")
+
+
+def _plain_real(x: torch.Tensor, plan: BinPlan) -> torch.Tensor:
+    """Per-bin sums of a real ``(..., P)`` tensor by the JAX package's
+    non-TPU route (``xrft_tpu/ops/binning.py:170-202``)."""
+    nbins, dev = plan.nbins, x.device
+    if plan.size * nbins <= ONEHOT_MAX_ELEMENTS:
+        if x.is_cuda:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rdtype = np.float64 if x.dtype == torch.float64 else np.float32
+        return x @ torch.as_tensor(_onehot(plan.codes, nbins, rdtype),
+                                   device=dev)
+    t = plan.on(dev)
+    # pairwise-accuracy prefix: blocked two-level cumsum.  The JAX package
+    # runs it in float32 for every dtype; here float64 data stay float64
+    # (ROADMAP.md, Queue 3)
+    blk = 1024
+    xs = x.index_select(-1, t["order"])
+    pad = (-plan.size) % blk
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, pad))
+    within = torch.cumsum(xs.reshape(xs.shape[:-1] + (-1, blk)), dim=-1)
+    block_tot = within[..., -1]
+    block_off = torch.cumsum(block_tot, dim=-1) - block_tot
+    prefix = (within + block_off[..., None]).reshape(xs.shape)
+    # csum0[i] = sum of sorted[:i]; bin b = csum0[end] - csum0[start]
+    csum0 = torch.cat([prefix.new_zeros(prefix.shape[:-1] + (1,)), prefix],
+                      dim=-1)
+    return (csum0.index_select(-1, t["ends"])
+            - csum0.index_select(-1, t["starts"]))
+
+
+def binned_sum_plain(x: torch.Tensor, plan: BinPlan) -> torch.Tensor:
+    """Plain torch version of K3 (the CPU route and the oracle on the card):
+    ``(..., P) -> (..., nbins)`` per-bin sums, code -1 dropped, complex data
+    reduced per component."""
+    _check(x, plan, "binned_sum_plain")
+    if x.is_complex():
+        return torch.complex(_plain_real(x.real, plan),
+                             _plain_real(x.imag, plan))
+    return _plain_real(x, plan)
+
+
+def binned_sum(x: torch.Tensor, plan: BinPlan) -> torch.Tensor:
+    """Per-bin sums over the trailing axis, ``(..., P) -> (..., nbins)``:
+    ``out[..., b] = sum of x[..., p] over the points p with code b``.
+    float32 and complex64 accumulate in float32, float64 and complex128 in
+    float64; complex data reduce both components in one launch."""
+    _check(x, plan, "binned_sum")
+    if x.device.type == "cpu":
+        return binned_sum_plain(x, plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"binned_sum runs on cuda or cpu tensors, not "
+                         f"{x.device.type}")
+    if not x.is_contiguous():
+        raise ValueError("binned_sum needs a contiguous input")
+    xr = torch.view_as_real(x.resolve_conj()) if x.is_complex() else x
+    comps = 2 if x.is_complex() else 1
+    rows = x.numel() // plan.size if plan.size else 0
+    groups = -(-rows // ROWS_PER_BLOCK)
+    if groups >= 2 ** 16:
+        raise ValueError(f"{rows} rows exceed the kernel's grid")
+    out = torch.empty(x.shape[:-1] + (plan.nbins,), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    from ._build import load
+
+    with torch.cuda.device(x.device):
+        t = plan.on(x.device)
+        nchunks = t["chunk_off"].numel() - 1
+        partial = torch.empty((rows, max(nchunks, 1), comps), dtype=xr.dtype,
+                              device=x.device)
+        fn = getattr(load("binned_sum"), _ENTRY[xr.dtype])
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(xr.data_ptr(), comps, t["order"].data_ptr(),
+                 t["chunk_off"].data_ptr(), t["bin_chunk"].data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), rows, plan.size,
+                 nchunks, plan.nbins, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"binned_sum kernel launch failed: CUDA error {err}")
+    binned_sum.launches += 1
+    return out
+
+
+binned_sum.launches = 0

@@ -1,13 +1,14 @@
-"""Power spectrum and its scaling rules.
+"""Power and cross spectra, cross phase, and their scaling rules.
 
-Counterpart of ``xrft_tpu/spectra.py:29-83,109-166,168-291,323-411,515-586``
-(xrft's ``xrft/xrft.py:649-750``).  For real input with two or more
-transform dims, the last dim is computed one-sided (rfft) and the two-sided
-grid is rebuilt by Hermitian symmetry.  When the two transform dims are the
-array's trailing two and ``config.psd_mirror_impl == "kernel"``, |F|^2, the
-scale, the fftshift and the mirror are one pass of kernel K1
-(:mod:`.ops.mirror`); every other geometry, and ``"plain"``, takes the
-general expansion :func:`_hermitian_expand`.
+Counterpart of ``xrft_tpu/spectra.py:29-83,109-411,473-675`` (xrft's
+``xrft/xrft.py:649-874``).  For real input with two or more transform dims,
+the last dim is computed one-sided (rfft) and the two-sided grid is rebuilt
+by Hermitian symmetry (conjugated for a cross spectrum).  When the two
+transform dims of a power spectrum are the array's trailing two and
+``config.psd_mirror_impl == "kernel"``, |F|^2, the scale, the fftshift and
+the mirror are one pass of kernel K1 (:mod:`.ops.mirror`); every other
+geometry, every cross spectrum, and ``"plain"`` take the general expansion
+:func:`_hermitian_expand`.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from .labeled import Coord, LabeledArray
 from .ops import mirror
 from .transform import _dim_coord, _not_ported, _real_flag_warning, fft
 
-__all__ = ["power_spectrum"]
+__all__ = ["power_spectrum", "cross_spectrum", "cross_phase", "coherence"]
 
 
 def _abs2(x: torch.Tensor) -> torch.Tensor:
@@ -113,12 +114,15 @@ def _half_spectrum_dim(da, dim, real_dim):
     return dims[-1]
 
 
-def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift):
-    """Expand a one-sided PSD over the half axis to the full two-sided grid
-    via Hermitian symmetry, with the shift conventions already applied on
-    the non-half axes:
+def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
+                      conj_mirror=False):
+    """Expand a one-sided array (PSD or cross spectrum) over the half axis
+    to the full two-sided grid via Hermitian symmetry, with the shift
+    conventions already applied on the non-half axes:
 
-        X[k_o, k] == X[-k_o mod n_o, n - k]
+        X[k_o, k] == conj(X[-k_o mod n_o, n - k])
+
+    (``conj_mirror``; the conjugation is a no-op for real PSDs).
 
     Output position o on the (possibly shifted) half axis reads unshifted
     frequency k = (o - h) mod n; k <= n//2 is one-sided column k, otherwise
@@ -149,6 +153,9 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift):
             perm = (2 * ha - np.arange(na)) % na
             piece = piece.index_select(daft.get_axis_num(fd[d]),
                                        torch.as_tensor(perm, device=dev))
+        if conj_mirror:
+            # materialised, so the copy never meets a lazy conj view
+            piece = torch.conj_physical(piece)
         full.index_copy_(ax_half, pos_t, piece)
 
     return LabeledArray(full, dims=daft.dims,
@@ -246,6 +253,40 @@ def _density_prescale(da, dim, scaling, window_correction, kwargs):
     return pre * (fs if scaling == "density" else fs**2)
 
 
+def _cross_spectrum_via_rfft(da1, da2, dim, half_dim, kwargs, prescale,
+                             true_phase):
+    """F1 * conj(F2) on the full grid from the one-sided transforms of two
+    real inputs, mirrored with conjugation:
+
+        C[k_o, k] == conj(C[-k_o mod n_o, n - k])
+
+    which holds with the true_phase factors too (conj(e^{-it}) = e^{+it})
+    (``xrft_tpu/spectra.py:473-512``, its generic route)."""
+    dims = _norm_dim_list(da1, dim)
+    shift = kwargs.pop("shift", True)
+    kwargs["true_amplitude"] = False
+    amp2 = float(np.prod([
+        ce.get_coordinate_spacing(_dim_coord(da1, d),
+                                  kwargs.get("spacing_tol", 1e-3))
+        for d in dims])) ** 2
+    daft1, daft2 = (fft(da, dim=dims, real_dim=half_dim, shift=shift,
+                        _shift_nonreal=True, true_phase=true_phase, **kwargs)
+                    for da in (da1, da2))
+    cs_half = daft1.data * daft2.data.conj()
+    cs_half = cs_half * (amp2 if prescale is None else amp2 * prescale)
+    out = _hermitian_expand(cs_half, daft1, da1, dims, half_dim, kwargs,
+                            shift, conj_mirror=True)
+    out.name = None
+    return out
+
+
+def _reject_segments(kwargs):
+    if kwargs.get("chunks_to_segments") or \
+            kwargs.get("segment_overlap") is not None:
+        raise _not_ported("chunks_to_segments/segment_overlap",
+                          "segments and short-time")
+
+
 def power_spectrum(
     da: LabeledArray,
     dim=None,
@@ -269,10 +310,7 @@ def power_spectrum(
         real_dim = kwargs.get("real")
         warnings.warn(_real_flag_warning, FutureWarning)
 
-    if kwargs.get("chunks_to_segments") or \
-            kwargs.get("segment_overlap") is not None:
-        raise _not_ported("chunks_to_segments/segment_overlap",
-                          "segments and short-time")
+    _reject_segments(kwargs)
 
     # true_phase does not matter for |F|^2; forced off to skip phase work
     kwargs.update({"true_amplitude": True, "true_phase": False})
@@ -299,3 +337,72 @@ def power_spectrum(
         ps = ps * _psd_scaling_factor(ps, updated_dims, scaling)
 
     return ps
+
+
+def cross_spectrum(
+    da1: LabeledArray,
+    da2: LabeledArray,
+    dim=None,
+    real_dim=None,
+    scaling="density",
+    window_correction=False,
+    true_phase=True,
+    **kwargs,
+) -> LabeledArray:
+    """Cross spectrum F(da1) * conj(F(da2)) with the scaling rules of
+    :func:`power_spectrum`; true_phase defaults True here, as in
+    ``xrft_tpu.cross_spectrum``.  Two real inputs take the one-sided
+    transform and the conjugated Hermitian expansion; the result has no
+    name."""
+    if "real" in kwargs:
+        real_dim = kwargs.get("real")
+        warnings.warn(_real_flag_warning, FutureWarning)
+
+    kwargs, scaling = _pop_density(kwargs, "cross_spectrum", scaling)
+    kwargs.update({"true_amplitude": True})
+
+    if tuple(da1.dims) != tuple(da2.dims):
+        raise ValueError("The two datasets have different dimensions")
+
+    _reject_segments(kwargs)
+
+    half = _half_spectrum_dim(da1, dim, real_dim)
+    if half is not None and _half_spectrum_dim(da2, dim, real_dim) == half:
+        prescale = _density_prescale(da1, dim, scaling, window_correction,
+                                     kwargs)
+        return _cross_spectrum_via_rfft(da1, da2, dim, half, kwargs,
+                                        prescale, true_phase)
+
+    daft1 = fft(da1, dim=dim, real_dim=real_dim, true_phase=true_phase,
+                **kwargs)
+    daft2 = fft(da2, dim=dim, real_dim=real_dim, true_phase=true_phase,
+                **kwargs)
+
+    updated_dims = [d for d in daft1.dims if d not in da1.dims]
+    cs = daft1 * daft2.conj()
+
+    if real_dim is not None:
+        cs = cs * _psd_real_dim_scaling(da1, cs, real_dim, updated_dims)
+
+    if scaling != "false_density":
+        if window_correction:
+            cs = cs / _window_correction_factor(
+                da1, dim, scaling, kwargs.get("window")
+            )
+        cs = cs * _psd_scaling_factor(cs, updated_dims, scaling)
+
+    return cs
+
+
+def cross_phase(da1, da2, dim=None, true_phase=True, **kwargs) -> LabeledArray:
+    """Phase of the cross spectrum, in [-pi, pi] (``xrft_tpu.cross_phase``)."""
+    cs = cross_spectrum(da1, da2, dim=dim, true_phase=true_phase, **kwargs)
+    cp = cs.copy(data=torch.angle(cs.data))
+    if da1.name and da2.name:
+        cp.name = f"{da1.name}_{da2.name}_phase"
+    return cp
+
+
+def coherence(*args, **kwargs):
+    """Not ported yet (``xrft_tpu.coherence``): it averages over segments."""
+    raise _not_ported("coherence", "segments and short-time")
