@@ -7,16 +7,22 @@ Run from the root of a checkout:
 
 It builds the package's CUDA kernels from ``xrft_tpu_torch/csrc`` with nvcc
 (one nvcc per source, all at once), holds each kernel against its plain
-PyTorch version on the card, and drives two paths at full width, each
-checked against the same pipeline in float64 through the plain routes:
+PyTorch version on the card, and drives four paths at full width:
 
   * the main path, the windowed, linearly detrended 2-D power spectrum of
-    8 x 4096 x 4096 float32 fields (``xrft_tpu_torch.power_spectrum``);
+    8 x 4096 x 4096 float32 fields (``xrft_tpu_torch.power_spectrum``),
+    against the same pipeline in float64 through the plain routes;
   * the isotropic path, the same spectrum summed into 1024 radial bins
     (``isotropic_power_spectrum``), with the 2048^2 grid of config 3 and the
-    isotropic cross spectrum of a (2, 4096, 4096) pair.
+    isotropic cross spectrum of a (2, 4096, 4096) pair;
+  * the float64 precision path, the same spectrum with ``engine="hp"``
+    under cuFFT in complex128 and under the FP64 kernel K4, with config 2's
+    1024^2 field against the numpy float64 closed form, the hp roundtrips,
+    the hp fft at 2048^2 and the isotropic hp spectrum;
+  * the inverse flagship, ``ifft`` of an 8 x 4096 x 2049 complex64 half
+    spectrum to 8 x 4096 x 4096, under cuFFT and under K2 with sign +1.
 
-It times both paths and each kernel beside its plain version.  Every phase
+It times each path and each kernel beside its plain version.  Every phase
 raises on failure; nothing is caught.  Its output ends with the card's name
 and power limit, one JSON line on the kernels, and the JSON status line.
 It fails, and prints no result, without a CUDA device or outside a checkout.
@@ -30,6 +36,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.signal as sps
 import torch
 
 MAIN_SHAPE = (8, 4096, 4096)   # bench.py's flagship
@@ -39,8 +46,18 @@ ISO_KW = dict(MAIN_KW, truncate=True)
 CONFIG3_SHAPE = (2048, 2048)   # bench.py's config 3 large grid
 CONFIG3_KW = dict(dim=["y", "x"], truncate=True)   # 512 bins
 CROSS_SHAPE = (2, 4096, 4096)
+HP_KW = dict(MAIN_KW, engine="hp")
+CONFIG2_N = 1024               # bench.py:500-515, config 2's hp shape
+HP_FFT_N = 2048                # bench.py:517-529
+INV_SHAPE = (8, 4096, 2049)    # bench.py:337-383, the inverse flagship
+INV_KW = dict(dim=["freq_y", "freq_x"], real_dim="freq_x", shift=False,
+              true_phase=False, true_amplitude=False, lag=None)
+# K4's shapes: (131072, 256) and the recursion at 4096 (8 x 4096 rows); the
+# hp path at 8 x 4096^2 runs (524288, 256) and (8388608, 16) on each axis
+K4_SHAPES = ((131072, 256), (524288, 256), (8388608, 16), (32768, 4096))
+K4_MAIN = {(524288, 256), (8388608, 16)}
 RUNS = 7                       # timed runs per measurement, after warm-up
-SOURCES = ("mirror", "fft_fourstep", "binned_sum")
+SOURCES = ("mirror", "fft_fourstep", "binned_sum", "dft64")
 T0 = time.perf_counter()
 
 
@@ -350,6 +367,257 @@ def isotropic_timings(xt, binning, card):
         f"{tk3:.3f} ms, 'plain' {tp3:.3f} ms [{card}]")
 
 
+def k4_phase(dft64, card):
+    """K4 against its plain version (n <= 256) and complex128 cuFFT, with
+    two launches compared bit for bit, then timed against both; returns its
+    error and times at the hp path's two shapes."""
+    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for rows, n in K4_SHAPES:
+        x = field((rows, n), 11, torch.complex128)
+        signs = (-1, 1) if (rows, n) not in K4_MAIN else (-1,)
+        for sign in signs:
+            got = dft64.fft_last(x, sign)
+            again = dft64.fft_last(x, sign)
+            ref = torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * n
+            # the recursion has no plain version of its own: cuFFT is its
+            # oracle, and K4 meets its plain version inside it at n <= 256
+            plain = dft64.dft_last_plain(x, sign) if n <= 256 else got
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"K4 ({rows}, {n}) sign {sign:+d}: two launches differ")
+            e_ref, e_plain = rel_err(got, ref), rel_err(got, plain)
+            check(e_ref <= 1e-12 and e_plain <= 1e-13,
+                  f"K4 ({rows}, {n}) sign {sign:+d}: rel err {e_ref:.3e} vs "
+                  f"cuFFT (limit 1e-12), {e_plain:.3e} vs plain (limit 1e-13)")
+            if (rows, n) in K4_MAIN:
+                result["max_abs_err"] = max(result["max_abs_err"],
+                                            (got - plain).abs().max().item())
+            log(f"phase 9: K4 ({rows}, {n}) complex128 sign {sign:+d}"
+                f"{' (recursion)' if n > 256 else ''}: rel err vs "
+                f"complex128 cuFFT {e_ref:.3e} (limit 1e-12)"
+                + (f", vs plain {e_plain:.3e} (limit 1e-13)" if n <= 256
+                   else "") + "; two runs bit-identical")
+            del got, again, ref, plain
+        t_cufft = wall_ms(lambda: torch.fft.fft(x))
+        if n <= 256:
+            tp, tk = ab_ms(lambda: dft64.dft_last_plain(x),
+                           lambda: dft64.dft_last(x))
+            if (rows, n) in K4_MAIN:
+                result["ms"] += tk
+                result["plain_ms"] += tp
+            log(f"phase 9: K4 ({rows}, {n}): kernel {tk:.3f} ms "
+                f"({rows * n * n * 8 / tk / 1e9:.2f} TFLOP/s FP64), plain "
+                f"x @ W {tp:.3f} ms, cuFFT {t_cufft:.3f} ms [{card}]")
+        else:
+            tk = wall_ms(lambda: dft64.fft_last(x))
+            log(f"phase 9: K4 recursion ({rows}, {n}): {tk:.3f} ms, cuFFT "
+                f"{t_cufft:.3f} ms [{card}]")
+        del x
+    return result
+
+
+def hp_oracle(v, dx):
+    """bench.py:536-550: the hp PSD's numpy float64 closed form (linear
+    detrend, hann window, density) of one square field."""
+    n = v.shape[0]
+    i = np.arange(n) - (n - 1) / 2
+    s2 = (i ** 2).sum()
+    vm = v - v.mean()
+    ay = (vm * i[:, None]).sum() / (s2 * n)
+    ax = (vm * i[None, :]).sum() / (s2 * n)
+    vd = vm - ay * i[:, None] - ax * i[None, :]
+    w = sps.windows.hann(n, sym=False)
+    F = np.fft.fftshift(np.fft.fftn(vd * np.outer(w, w))) * dx * dx
+    return np.abs(F) ** 2 * (1.0 / (n * dx)) ** 2
+
+
+def hp_phase(xt, kernels, card):
+    """The float64 precision path at full width under both fft_impl
+    values, config 2 against numpy, the hp roundtrips, the hp fft at 2048^2
+    and the isotropic hp spectrum; returns K4's launches on the hp path."""
+    from xrft_tpu_torch.config import fft_impl
+
+    dft64, binning = kernels["dft64"], kernels["binned_sum"]
+    da = labeled(xt, field(MAIN_SHAPE, 0))
+    with fft_impl("torch"):
+        ref = xt.power_spectrum(da, **HP_KW)
+    for k in kernels.values():
+        k.launches = 0
+    with fft_impl("kernel"):
+        ps = xt.power_spectrum(da, **HP_KW)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"phase 10: hp path {MAIN_SHAPE} under fft_impl='kernel': kernel "
+        f"launches {launches}")
+    check(launches["dft64"] > 0,
+          f"K4 was not launched on the hp path: {launches}")
+    for impl, p in (("kernel", ps), ("torch", ref)):
+        check(p.dims == ("time", "freq_y", "freq_x") and p.shape == MAIN_SHAPE
+              and p.dtype == torch.float64, f"hp {impl}: unexpected {p!r}")
+        check(bool(torch.isfinite(p.data).all()), f"hp {impl}: non-finite")
+    err = rel_err(ps.data, ref.data)
+    check(err <= 1e-12, f"hp path: K4 vs cuFFT rel err {err:.3e} > 1e-12")
+    ps32 = xt.power_spectrum(da, **MAIN_KW)
+    err32 = rel_err(ps32.data, ref.data)
+    check(err32 <= 1e-5, f"float32 PSD vs hp PSD rel err {err32:.3e}")
+    log(f"phase 10: hp PSD, fft_impl='kernel' vs 'torch' (cuFFT complex128) "
+        f"rel err {err:.3e} (limit 1e-12); the float32 PSD against it "
+        f"{err32:.3e} (limit 1e-5)")
+    del ps, ps32
+
+    # the isotropic hp spectrum: K3 in float64, conserving the hp total
+    before = binning.launches
+    iso = xt.isotropic_power_spectrum(da, **dict(ISO_KW, engine="hp"))
+    torch.cuda.synchronize()
+    nbins = MAIN_SHAPE[-1] // 4
+    check(binning.launches > before and iso.dtype == torch.float64
+          and iso.shape == (MAIN_SHAPE[0], nbins),
+          f"isotropic hp: {binning.launches - before} K3 launches, {iso!r}")
+    tot = ref.data.sum(dim=(1, 2))
+    cons = ((iso.data.sum(dim=1) - tot).abs() / tot).max().item()
+    check(cons <= 1e-12, f"isotropic hp conservation rel err {cons:.3e}")
+    log(f"phase 10: isotropic hp {MAIN_SHAPE}, {nbins} bins: K3 ran in "
+        f"float64; sum(iso) vs sum(hp PSD) rel err {cons:.3e} (limit 1e-12)")
+    del iso, ref
+
+    # config 2's hp shape against the numpy float64 closed form
+    n2 = CONFIG2_N
+    d2 = xt.LabeledArray(field((n2, n2), 12), dims=("y", "x"),
+                         coords={"y": np.arange(n2) * 0.5,
+                                 "x": np.arange(n2) * 0.5})
+    oracle = hp_oracle(d2.values.astype(np.float64), 0.5)
+    n1 = 512
+    t1 = np.arange(n1) * 0.25
+    d1 = xt.LabeledArray(field((n1,), 14), dims=("t",), coords={"t": t1})
+    sig = d1.values.astype(np.float64)
+    for impl in ("torch", "kernel"):
+        with fft_impl(impl):
+            ps2 = xt.power_spectrum(d2, **HP_KW)
+            ft = xt.fft(d1, dim=["t"], engine="hp")
+            back = xt.ifft(ft, dim=["freq_t"], engine="hp",
+                           lag=[float(t1[n1 // 2])])
+            back64 = xt.ifft64(xt.fft64(d1, dim="t"), dim="freq_t",
+                               lag=float(t1[n1 // 2]))
+        e2 = float(np.abs(ps2.values - oracle).max() / oracle.max())
+        e_rt = float(np.abs(back.values.real - sig).max())
+        e_64 = float(np.abs(back64.values.real - sig).max())
+        check(e2 <= 1e-10 and e_rt <= 1e-12 and e_64 <= 1e-12,
+              f"{impl}: config 2 hp rel err {e2:.3e} (limit 1e-10), "
+              f"roundtrips {e_rt:.3e} / {e_64:.3e} (limit 1e-12)")
+        log(f"phase 10: fft_impl={impl!r}: config 2 hp PSD ({n2}^2) vs numpy "
+            f"float64 rel err {e2:.3e} (limit 1e-10); hp fft/ifft roundtrip "
+            f"({n1} points) max abs err {e_rt:.3e}, fft64/ifft64 {e_64:.3e} "
+            f"(limit 1e-12)")
+
+    # the hp fft at 2048^2, both routes, then the A/B times
+    n7 = HP_FFT_N
+    d7 = xt.LabeledArray(field((n7, n7), 15), dims=("y", "x"),
+                         coords={"y": np.arange(n7) * 1.0,
+                                 "x": np.arange(n7) * 1.0})
+    kw7 = dict(dim=["y", "x"], engine="hp", true_phase=False,
+               true_amplitude=False)
+
+    def run(impl, fn, *args, **kw):
+        def go():
+            with fft_impl(impl):
+                return fn(*args, **kw)
+        return go
+
+    e7 = rel_err(run("kernel", xt.fft, d7, **kw7)().data,
+                 run("torch", xt.fft, d7, **kw7)().data)
+    check(e7 <= 1e-12, f"hp fft {n7}^2: K4 vs cuFFT rel err {e7:.3e}")
+    tt, tk = ab_ms(run("torch", xt.fft, d7, **kw7),
+                   run("kernel", xt.fft, d7, **kw7))
+    log(f"phase 10: hp fft {n7}^2: K4 vs cuFFT rel err {e7:.3e} (limit "
+        f"1e-12); fft_impl='torch' {tt:.3f} ms, 'kernel' {tk:.3f} ms [{card}]")
+    t2t, t2k = ab_ms(run("torch", xt.power_spectrum, d2, **HP_KW),
+                     run("kernel", xt.power_spectrum, d2, **HP_KW))
+    log(f"phase 10: config 2 hp PSD {n2}^2: fft_impl='torch' {t2t:.3f} ms, "
+        f"'kernel' {t2k:.3f} ms [{card}]")
+    tt, tk = ab_ms(run("torch", xt.power_spectrum, da, **HP_KW),
+                   run("kernel", xt.power_spectrum, da, **HP_KW))
+    t_iso = wall_ms(run("torch", xt.isotropic_power_spectrum, da,
+                        **dict(ISO_KW, engine="hp")))
+    log(f"phase 10: hp PSD {MAIN_SHAPE}: fft_impl='torch' {tt:.3f} ms, "
+        f"'kernel' {tk:.3f} ms; isotropic hp ('torch') {t_iso:.3f} ms "
+        f"[{card}]")
+    device_split(run("torch", xt.power_spectrum, da, **HP_KW),
+                 "phase 10: hp PSD, 'torch'", card)
+    device_split(run("kernel", xt.power_spectrum, da, **HP_KW),
+                 "phase 10: hp PSD, 'kernel'", card)
+    return launches["dft64"]
+
+
+def inverse_phase(xt, fft_fourstep, card):
+    """The inverse flagship under cuFFT and K2 (sign +1), against the same
+    call in complex128, with freq_y fftshifted and in natural order (the
+    same spectrum, so the two give the same bits), then timed."""
+    from xrft_tpu_torch.config import fft_impl
+
+    n = INV_SHAPE[1]
+    fy = np.fft.fftfreq(n, 0.5)
+    fx = np.fft.rfftfreq(n, 0.5)
+    # the half spectrum of a real field (y in natural order): Hermitian, as
+    # the inverse assumes (cuFFT's c2r does not drop the imaginary parts of
+    # a half spectrum that is not, as numpy's irfft does)
+    F = torch.fft.rfftn(field(INV_SHAPE[:2] + (n,), 13), dim=(1, 2))
+
+    def half(data, order):
+        # fftshifted order holds the same spectrum: data and freq_y shifted
+        if order == "shifted":
+            data = torch.fft.fftshift(data, dim=1)
+        return xt.LabeledArray(
+            data, dims=("time", "freq_y", "freq_x"),
+            coords={"freq_y": np.fft.fftshift(fy) if order == "shifted"
+                    else fy, "freq_x": fx})
+
+    with fft_impl("torch"):
+        ref = xt.ifft(half(F.to(torch.complex128), "shifted"), **INV_KW)
+    outs = {}
+    for order in ("shifted", "natural"):
+        fft_fourstep.fft_last.launches = 0
+        with fft_impl("kernel"):
+            outs["kernel", order] = xt.ifft(half(F, order), **INV_KW)
+        torch.cuda.synchronize()
+        k2 = fft_fourstep.fft_last.launches
+        check(k2 > 0, f"K2 was not launched on the inverse path ({order})")
+        with fft_impl("torch"):
+            outs["torch", order] = xt.ifft(half(F, order), **INV_KW)
+        for impl in ("torch", "kernel"):
+            out = outs[impl, order]
+            check(out.dims == ("time", "y", "x")
+                  and out.shape == INV_SHAPE[:2] + (n,)
+                  and out.dtype == torch.float32,
+                  f"inverse {impl} {order}: unexpected output {out!r}")
+            err = rel_err(out.data, ref.data)
+            check(err <= 1e-5, f"inverse {impl} {order}: rel err {err:.3e}")
+            log(f"phase 11: inverse flagship {INV_SHAPE}->{n}, freq_y "
+                f"{order}, fft_impl={impl!r}: rel err vs complex128 "
+                f"{err:.3e} (limit 1e-5)" + (f"; K2 launches {k2}"
+                                              if impl == "kernel" else ""))
+    for impl in ("torch", "kernel"):
+        check(torch.equal(outs[impl, "shifted"].data,
+                          outs[impl, "natural"].data),
+              f"inverse {impl}: natural order differs from shifted")
+    del outs, ref
+
+    def run(impl, order):
+        daft = half(F, order)
+
+        def go():
+            with fft_impl(impl):
+                xt.ifft(daft, **INV_KW)
+        return go
+
+    for order in ("shifted", "natural"):
+        tt, tk = ab_ms(run("torch", order), run("kernel", order))
+        log(f"phase 11: inverse flagship, freq_y {order}: fft_impl='torch' "
+            f"{tt:.3f} ms, 'kernel' {tk:.3f} ms [{card}]")
+    for impl in ("torch", "kernel"):
+        device_split(run(impl, "shifted"),
+                     f"phase 11: inverse flagship, {impl!r}", card)
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -357,7 +625,7 @@ def main():
                          "(torch.cuda.is_available() is false)")
     import xrft_tpu_torch as xt
     from xrft_tpu_torch.config import fft_impl, psd_mirror_impl
-    from xrft_tpu_torch.ops import _build, binning, fft_fourstep, mirror
+    from xrft_tpu_torch.ops import _build, binning, dft64, fft_fourstep, mirror
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -516,6 +784,14 @@ def main():
     k3["launches"] = isotropic_phase(xt, binning, mirror)
     isotropic_timings(xt, binning, card)
 
+    # ---- phases 9-11: K4, the float64 precision path, the inverse --------
+    k4 = k4_phase(dft64, card)
+    k4["launches"] = hp_phase(xt, {"dft64": dft64.dft_last,
+                                   "fft_fourstep": fft_fourstep.fft_last,
+                                   "mirror_psd": mirror.mirror_psd,
+                                   "binned_sum": binning.binned_sum}, card)
+    inverse_phase(xt, fft_fourstep, card)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "mirror_psd", "route": "cuda",
@@ -531,6 +807,9 @@ def main():
         {"name": "binned_sum", "route": "cuda",
          "source": "xrft_tpu_torch/csrc/binned_sum.cu",
          "replaces": "xrft_tpu/ops/binning.py:77", **k3},
+        {"name": "dft64", "route": "cuda",
+         "source": "xrft_tpu_torch/csrc/dft64.cu",
+         "replaces": "xrft_tpu/ops/df64_fft.py:129", **k4},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

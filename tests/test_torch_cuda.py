@@ -11,10 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from xrft_tpu_torch import (LabeledArray, isotropic_cross_spectrum,
+from xrft_tpu_torch import (LabeledArray, fft, ifft,
+                            isotropic_cross_spectrum,
                             isotropic_power_spectrum, power_spectrum)
 from xrft_tpu_torch.config import binned_sum_impl, fft_impl, psd_mirror_impl
-from xrft_tpu_torch.ops import binning, fft_fourstep, mirror
+from xrft_tpu_torch.ops import binning, dft64, fft_fourstep, mirror
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +77,64 @@ def test_kernels_reject_strided_input(cuda):
     plan = binning.BinPlan(np.arange(16) % 3, 3)
     with pytest.raises(ValueError, match="contiguous"):
         binning.binned_sum(torch.zeros((16, 4), device=cuda).T, plan)
+    z = torch.zeros((64, 32), device=cuda, dtype=torch.complex128)
+    with pytest.raises(ValueError, match="contiguous"):
+        dft64.dft_last(z[:, ::2])
+    with pytest.raises(ValueError, match="complex128 only"):
+        dft64.dft_last(z.to(torch.complex64))
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("n,rows", [(16, 4099), (96, 513), (120, 257),
+                                    (250, 64), (256, 1000), (1000, 64),
+                                    (2048, 32), (4096, 48)])
+def test_dft64_kernel_matches_plain_and_cufft(cuda, n, rows, sign):
+    """K4 alone (n <= 256) against its plain version at 1e-13 of max, and
+    the recursion against cuFFT in complex128 at 1e-12; two runs are bit
+    for bit the same."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((rows, n), generator=g, device=cuda,
+                    dtype=torch.complex128)
+    before = dft64.dft_last.launches
+    got = dft64.fft_last(x, sign)
+    again = dft64.fft_last(x, sign)
+    stages = 1 if n <= 256 else 2
+    assert dft64.dft_last.launches == before + 2 * stages
+    ref = torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * n
+    torch.cuda.synchronize()
+    assert got.dtype == torch.complex128 and got.is_contiguous()
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= 1e-12
+    if n <= 256:
+        assert _rel(got, dft64.dft_last_plain(x, sign)) <= 1e-13
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_hp_psd_and_ifft_through_kernels(cuda, impl):
+    """The hp PSD takes K4 (both axes, 256 each) under fft_impl="kernel";
+    the float32 ifft of a half spectrum takes K2 with sign +1."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 256, 256), generator=g, device=cuda)
+    coords = {"y": np.arange(256) * 0.5, "x": np.arange(256) * 0.5}
+    da = LabeledArray(x, ("time", "y", "x"), coords)
+    kw = dict(dim=["y", "x"], window="hann", detrend="linear")
+    k2, k4 = fft_fourstep.fft_last.launches, dft64.dft_last.launches
+    with fft_impl(impl):
+        hp = power_spectrum(da, engine="hp", **kw)
+        F = fft(da, dim=["y", "x"], real_dim="x", shift=False)
+        back = ifft(F, dim=["freq_y", "freq_x"], real_dim="freq_x",
+                    lag=[64.0, 64.0])
+    kernel = impl == "kernel"
+    assert dft64.dft_last.launches == k4 + (2 if kernel else 0)
+    assert fft_fourstep.fft_last.launches == k2 + (4 if kernel else 0)
+    with fft_impl("torch"):
+        ref = power_spectrum(LabeledArray(x.double(), ("time", "y", "x"),
+                                          coords), engine="hp", **kw)
+    torch.cuda.synchronize()
+    assert hp.data.is_cuda and hp.dtype == torch.float64
+    assert _rel(hp.data, ref.data) <= 1e-12
+    assert back.data.is_cuda and back.dtype == torch.float32
+    assert _rel(back.data.double(), x.double()) <= 2e-6
 
 
 def _radial_codes(n, nbins, dx=0.5):

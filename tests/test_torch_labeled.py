@@ -206,6 +206,14 @@ def test_entry_shape_runs_with_jax_and_pandas_blocked():
         " detrend='linear', truncate=True)\n"
         "assert iso.dims == ('time', 'freq_r') and iso.shape == (B, N // 4)\n"
         "assert np.isfinite(iso.values).all()\n"
+        "back = xt.ifft(xt.fft(da, dim=['y', 'x'], real_dim='x'),"
+        " dim=['freq_y', 'freq_x'], real_dim='freq_x', lag=[64.0, 64.0])\n"
+        "assert back.dims == ('time', 'y', 'x') and back.shape == (B, N, N)\n"
+        "assert np.abs(back.values - da.values).max() < 1e-5\n"
+        "hp = xt.power_spectrum(da, dim=['y', 'x'], window='hann',"
+        " detrend='linear', engine='hp')\n"
+        "assert str(hp.dtype) == 'torch.float64' and hp.shape == (B, N, N)\n"
+        "assert np.abs(hp.values - ps.values).max() < 1e-5 * ps.values.max()\n"
         "assert 'pandas' not in {m.split('.')[0] for m, v in"
         " sys.modules.items() if v is not None}\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items()"

@@ -75,16 +75,30 @@ def test_entry_shape_float64(mirror_impl):
     _assert_matches(got, ref, TOL[np.float64])
 
 
-def test_kernel_fft_rejects_what_it_cannot_run():
-    """fft_impl="kernel" raises for float64 and unsupported lengths; it
-    never switches to torch.fft quietly."""
-    _, da64 = _pair((2, 256, 256), np.float64)
+def test_kernel_fft_rejects_what_it_cannot_run(monkeypatch):
+    """fft_impl="kernel" raises for float32 lengths K2 cannot run; it never
+    switches to torch.fft quietly.  float64 data take the K4 recursion and
+    match xrft_tpu at 1e-12."""
+    from xrft_tpu_torch.ops import dft64
+
+    lengths = []
+    real_fft_last = dft64.fft_last
+
+    def counting(x, sign=-1):
+        lengths.append(x.shape[-1])
+        return real_fft_last(x, sign)
+
+    monkeypatch.setattr(dft64, "fft_last", counting)
+    ref_in, da64 = _pair((2, 256, 256), np.float64)
     _, da_small = _pair((2, 64, 300), np.float32)
     with fft_impl("kernel"):
-        with pytest.raises(ValueError, match="float32/complex64"):
-            xt.power_spectrum(da64, **MAIN)
+        got = xt.power_spectrum(da64, **MAIN)
         with pytest.raises(ValueError, match="factor pair"):
             xt.power_spectrum(da_small, **MAIN)
+    assert lengths == [256, 256]
+    assert got.dtype == torch.float64
+    _assert_matches(got, xrft_tpu.power_spectrum(ref_in, **MAIN),
+                    TOL[np.float64])
 
 
 VARIANTS = {
@@ -163,12 +177,10 @@ def test_unported_options_raise():
     _, da = _pair((4, 24, 20), np.float64)
     with pytest.raises(NotImplementedError, match="segments and short-time"):
         xt.power_spectrum(da, dim="x", chunks_to_segments=True)
-    with pytest.raises(NotImplementedError, match="float64 precision path"):
-        xt.power_spectrum(da, dim=["y", "x"], engine="hp")
-    with pytest.raises(NotImplementedError, match="ifft"):
-        from xrft_tpu_torch.transform import ifft
-
-        ifft(da)
+    with pytest.raises(NotImplementedError, match="sharded path"):
+        xt.power_spectrum(da, dim=["y", "x"], engine="xla")
+    with pytest.raises(NotImplementedError, match="segments and short-time"):
+        xt.ifft(xt.fft(da, dim="x"), dim="freq_x", chunks_to_segments=True)
 
 
 def test_mirror_route_choice():

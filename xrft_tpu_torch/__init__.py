@@ -4,21 +4,25 @@ Coordinate-aware spectral analysis on torch tensors.  Coordinates stay host
 numpy; bulk data is a ``torch.Tensor`` on the device it was given.  The JAX
 package ``xrft_tpu`` is the reference this package is held against.
 
-Ported so far: the windowed, detrended ``power_spectrum`` path (``fft``
-forward, ``detrend``, windows, the Hermitian two-sided expansion), the cross
-spectrum and cross phase, and the isotropic (radially binned) spectra, with
-three hand-written CUDA kernels for Hopper: the fused PSD epilogue
-(:mod:`.ops.mirror`), the four-step DFT (:mod:`.ops.fft_fourstep`) and the
-binned sum (:mod:`.ops.binning`).
+Ported so far: the windowed, detrended ``power_spectrum`` path (``fft``,
+``detrend``, windows, the Hermitian two-sided expansion), the inverse
+transform (``ifft``, with the ``dft``/``idft`` aliases), the cross spectrum
+and cross phase, the isotropic (radially binned) spectra, and the float64
+precision path (``engine="hp"``, ``fft64``/``ifft64``), with four
+hand-written CUDA kernels for Hopper: the fused PSD epilogue
+(:mod:`.ops.mirror`), the four-step DFT (:mod:`.ops.fft_fourstep`), the
+binned sum (:mod:`.ops.binning`) and the FP64 direct DFT
+(:mod:`.ops.dft64`).
 """
 
 from .config import config
 from .detrend import detrend
+from .highprec import fft64, ifft64
 from .isotropic import (fit_loglog, isotropic_cross_spectrum,
                         isotropic_power_spectrum, isotropize)
 from .labeled import Coord, LabeledArray
 from .spectra import cross_phase, cross_spectrum, power_spectrum
-from .transform import fft
+from .transform import dft, fft, idft, ifft
 from .utils import get_spacing
 
 __all__ = [
@@ -28,9 +32,14 @@ __all__ = [
     "cross_phase",
     "cross_spectrum",
     "detrend",
+    "dft",
     "fft",
+    "fft64",
     "fit_loglog",
     "get_spacing",
+    "idft",
+    "ifft",
+    "ifft64",
     "isotropic_cross_spectrum",
     "isotropic_power_spectrum",
     "isotropize",

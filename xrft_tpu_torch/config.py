@@ -22,9 +22,13 @@ class _Config:
     # FFT execution:
     #   "torch"  - torch.fft (cuFFT on a CUDA device, pocketfft on the CPU),
     #              as the JAX package's GPU branch resolves to XLA's FFT.
-    #   "kernel" - the hand-written four-step DFT (ops/fft_fourstep.py), one
-    #              launch per transformed axis; float32 only, and only for
-    #              axis lengths n >= 256 with a factor pair n1, n2 <= 256.
+    #   "kernel" - the hand-written kernels, picked by dtype: float32 and
+    #              complex64 data run the four-step DFT K2
+    #              (ops/fft_fourstep.py), one launch per transformed axis, for
+    #              axis lengths n >= 256 with a factor pair n1, n2 <= 256;
+    #              float64 and complex128 data run the FP64 recursion with K4
+    #              as its base case (ops/dft64.py), for lengths whose factors
+    #              are <= 256.  Anything else raises.
     fft_impl: str = "torch"
     # Two-sided PSD epilogue of power_spectrum for real input:
     #   "kernel" - |F|^2, the scale, the y-fftshift and the Hermitian mirror

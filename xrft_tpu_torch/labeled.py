@@ -176,6 +176,27 @@ class LabeledArray:
         out.dims = tuple(dims)
         return out
 
+    def sortby(self, dim) -> "LabeledArray":
+        """Sort along one or more dims by their 1-D dim-coordinate values
+        (stable); the data move by ``index_select`` on their device."""
+        dims = [dim] if isinstance(dim, str) else list(dim)
+        out = self
+        for d in dims:
+            if d not in out.coords:
+                raise KeyError(f"no coordinate for dim {d!r}")
+            order = np.argsort(out.coords[d].values, kind="stable")
+            if np.array_equal(order, np.arange(order.size)):
+                continue
+            nxt = out.copy(data=out.data.index_select(
+                out.get_axis_num(d),
+                torch.as_tensor(order, device=out.data.device)))
+            for cname, c in nxt.coords.items():
+                if d in c.dims:
+                    nxt.coords[cname] = c.copy(
+                        values=np.take(c.values, order, axis=c.dims.index(d)))
+            out = nxt
+        return out
+
     def assign_coords(self, coords=None, **kwargs) -> "LabeledArray":
         coords = dict(coords or {})
         coords.update(kwargs)

@@ -1,28 +1,38 @@
 """N-D FFT primitives, dispatched on ``config.fft_impl``.
 
 Counterpart of ``xrft_tpu/ops/fft_core.py:62-133``.  Both implementations
-follow numpy's convention (unnormalised forward), so every scaling rule
-downstream is implementation-independent:
+follow numpy's convention (unnormalised forward, 1/n inverse), so every
+scaling rule downstream is implementation-independent:
 
   * ``"torch"``  - ``torch.fft`` (cuFFT on a CUDA device), the counterpart of
                    the JAX package's XLA FFT on a GPU.
-  * ``"kernel"`` - the four-step kernel K2 (:mod:`.fft_fourstep`), one launch
-                   per transformed axis: the axis is moved last and made
-                   contiguous, transformed, and moved back.  float32 only;
-                   an unsupported dtype or length raises ValueError.
+  * ``"kernel"`` - the hand-written kernels, by dtype: float32/complex64 data
+                   run the four-step kernel K2 (:mod:`.fft_fourstep`), one
+                   launch per transformed axis (the axis is moved last and
+                   made contiguous, transformed, and moved back);
+                   float64/complex128 data run the FP64 recursion with K4 as
+                   its base case (:mod:`.dft64`).  The inverse is the sign +1
+                   transform scaled by 1/n.  A dtype or length a kernel
+                   cannot run raises; nothing is handed to torch.fft quietly.
 
-``pre_shift_axes`` ifftshift the input and ``post_shift_axes`` fftshift the
-output, as in the JAX package's engines.
+``pre_shift_axes`` ifftshift the input and ``post_shift_axes`` shift the
+output (``post_kind`` "fftshift" or, for the inverses, "ifftshift"), as in
+the JAX package's engines.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import FFT_IMPLS, config
+from .dft64 import fftn64
 from .fft_fourstep import fft_last
 
-__all__ = ["fftn", "rfftn", "fftshift", "ifftshift"]
+__all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fftshift", "ifftshift"]
+
+_FP64 = (torch.float64, torch.complex128)
 
 
 def _impl() -> str:
@@ -33,12 +43,32 @@ def _impl() -> str:
     return impl
 
 
-def _kernel_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
-    return fft_last(x.movedim(axis, -1).contiguous(), -1).movedim(-1, axis)
+def _kernel_fftn(x: torch.Tensor, axes, inverse=False) -> torch.Tensor:
+    """The kernel route over ``axes``: the K4 recursion for float64 data,
+    K2 one axis at a time otherwise; ``inverse`` takes sign +1 and 1/n."""
+    if x.dtype in _FP64:
+        return fftn64(x, axes, "ifft" if inverse else "fft")
+    sign = 1 if inverse else -1
+    out = x
+    for a in reversed(axes):
+        out = fft_last(out.movedim(a, -1).contiguous(), sign).movedim(-1, a)
+    if inverse and axes:
+        out = out * (1.0 / math.prod(x.shape[a] for a in axes))
+    return out
 
 
 def _norm(axes, ndim):
     return [a % ndim for a in ([axes] if isinstance(axes, int) else axes)]
+
+
+def _post(out, post_shift_axes, post_kind):
+    if not post_shift_axes:
+        return out
+    if post_kind == "fftshift":
+        return fftshift(out, post_shift_axes)
+    if post_kind == "ifftshift":
+        return ifftshift(out, post_shift_axes)
+    raise ValueError(f"unknown post_kind {post_kind!r}")
 
 
 def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
@@ -49,12 +79,21 @@ def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     if _impl() == "torch":
         out = torch.fft.fftn(x, dim=axes)
     else:
-        out = x
-        for a in reversed(axes):
-            out = _kernel_axis(out, a)
-    if post_shift_axes:
-        out = fftshift(out, post_shift_axes)
-    return out
+        out = _kernel_fftn(x, axes)
+    return _post(out, post_shift_axes, "fftshift")
+
+
+def ifftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
+          post_kind="fftshift"):
+    """Complex N-D inverse FFT over ``axes``, scaled by 1/prod(n)."""
+    axes = _norm(axes, x.ndim)
+    if pre_shift_axes:
+        x = ifftshift(x, pre_shift_axes)
+    if _impl() == "torch":
+        out = torch.fft.ifftn(x, dim=axes)
+    else:
+        out = _kernel_fftn(x, axes, inverse=True)
+    return _post(out, post_shift_axes, post_kind)
 
 
 def rfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
@@ -67,12 +106,36 @@ def rfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
         out = torch.fft.rfftn(x, dim=axes)
     else:
         last = axes[-1]
-        out = _kernel_axis(x, last).narrow(last, 0, x.shape[last] // 2 + 1)
-        for a in reversed(axes[:-1]):
-            out = _kernel_axis(out, a)
-    if post_shift_axes:
-        out = fftshift(out, post_shift_axes)
-    return out
+        out = _kernel_fftn(x, [last]).narrow(last, 0, x.shape[last] // 2 + 1)
+        out = _kernel_fftn(out, axes[:-1])
+    return _post(out, post_shift_axes, "fftshift")
+
+
+def irfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
+           post_kind="fftshift"):
+    """Inverse of :func:`rfftn`: the half-spectrum axis ``axes[-1]`` of
+    length m gives ``n = 2*(m - 1)`` real outputs, as numpy's ``irfftn``.
+
+    The kernel route inverts the other axes first, extends the last one to
+    length n by Hermitian symmetry (``X[n - k] = conj(X[k])``), runs the
+    sign +1 transform and keeps the real part, which drops any imaginary
+    part at DC and Nyquist as numpy does."""
+    axes = _norm(axes, x.ndim)
+    if pre_shift_axes:
+        x = ifftshift(x, pre_shift_axes)
+    if _impl() == "torch":
+        out = torch.fft.irfftn(x, dim=axes)
+    else:
+        last = axes[-1]
+        m = x.shape[last]
+        if m < 2:
+            raise ValueError(f"irfftn needs a half-spectrum axis of length "
+                             f">= 2, got {m}")
+        half = _kernel_fftn(x, axes[:-1], inverse=True)
+        mirror = half.narrow(last, 1, m - 2).flip(last).conj()
+        full = torch.cat([half, mirror], dim=last)
+        out = _kernel_fftn(full, [last], inverse=True).real
+    return _post(out, post_shift_axes, post_kind)
 
 
 def fftshift(x: torch.Tensor, axes):

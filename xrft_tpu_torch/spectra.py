@@ -8,7 +8,8 @@ transform dims of a power spectrum are the array's trailing two and
 ``config.psd_mirror_impl == "kernel"``, |F|^2, the scale, the fftshift and
 the mirror are one pass of kernel K1 (:mod:`.ops.mirror`); every other
 geometry, every cross spectrum, and ``"plain"`` take the general expansion
-:func:`_hermitian_expand`.
+:func:`_hermitian_expand`.  ``engine="hp"`` routes both spectra to
+:mod:`.highprec`.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from . import coords as ce
 from .config import MIRROR_IMPLS, config
 from .labeled import Coord, LabeledArray
 from .ops import mirror
-from .transform import _dim_coord, _not_ported, _real_flag_warning, fft
+from .transform import (_dim_coord, _not_ported, _real_flag_warning,
+                        _reject_segments, fft)
 
 __all__ = ["power_spectrum", "cross_spectrum", "cross_phase", "coherence"]
 
@@ -280,13 +282,6 @@ def _cross_spectrum_via_rfft(da1, da2, dim, half_dim, kwargs, prescale,
     return out
 
 
-def _reject_segments(kwargs):
-    if kwargs.get("chunks_to_segments") or \
-            kwargs.get("segment_overlap") is not None:
-        raise _not_ported("chunks_to_segments/segment_overlap",
-                          "segments and short-time")
-
-
 def power_spectrum(
     da: LabeledArray,
     dim=None,
@@ -310,7 +305,18 @@ def power_spectrum(
         real_dim = kwargs.get("real")
         warnings.warn(_real_flag_warning, FutureWarning)
 
-    _reject_segments(kwargs)
+    if kwargs.get("engine") == "hp":
+        from .highprec import power_spectrum_hp
+
+        kwargs.pop("engine")
+        kwargs.pop("real", None)
+        return power_spectrum_hp(da, dim=dim, real_dim=real_dim,
+                                 scaling=scaling,
+                                 window_correction=window_correction,
+                                 **kwargs)
+
+    _reject_segments(kwargs.get("chunks_to_segments"),
+                     kwargs.get("segment_overlap"))
 
     # true_phase does not matter for |F|^2; forced off to skip phase work
     kwargs.update({"true_amplitude": True, "true_phase": False})
@@ -361,10 +367,21 @@ def cross_spectrum(
     kwargs, scaling = _pop_density(kwargs, "cross_spectrum", scaling)
     kwargs.update({"true_amplitude": True})
 
+    if kwargs.get("engine") == "hp":
+        from .highprec import cross_spectrum_hp
+
+        kwargs.pop("engine")
+        kwargs.pop("real", None)
+        return cross_spectrum_hp(da1, da2, dim=dim, real_dim=real_dim,
+                                 scaling=scaling,
+                                 window_correction=window_correction,
+                                 true_phase=true_phase, **kwargs)
+
     if tuple(da1.dims) != tuple(da2.dims):
         raise ValueError("The two datasets have different dimensions")
 
-    _reject_segments(kwargs)
+    _reject_segments(kwargs.get("chunks_to_segments"),
+                     kwargs.get("segment_overlap"))
 
     half = _half_spectrum_dim(da1, dim, real_dim)
     if half is not None and _half_spectrum_dim(da2, dim, real_dim) == half:

@@ -1,10 +1,12 @@
-"""Forward Fourier transform with coordinate-aware phase and amplitude.
+"""Forward and inverse Fourier transforms with coordinate-aware phase and
+amplitude.
 
-Counterpart of ``xrft_tpu/transform.py:224-399`` (xrft's
-``xrft/xrft.py:307-476``).  Every decision driven by coordinates (spacing,
-lag, frequency grids, axis flips, shifts, phase factors) is computed on the
-host; the bulk data goes through torch ops on its own device (flip,
-ifftshift, detrend, window, FFT, fftshift, phase multiply, amplitude scale).
+Counterpart of ``xrft_tpu/transform.py:224-639`` (xrft's
+``xrft/xrft.py:237-266,307-646``).  Every decision driven by coordinates
+(spacing, lag, frequency grids, sort order, axis flips, shifts, phase
+factors) is computed on the host; the bulk data goes through torch ops on
+its own device (flip, roll, ifftshift, detrend, window, FFT, fftshift, phase
+multiply, amplitude scale).  ``engine="hp"`` routes to :mod:`.highprec`.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from . import coords as ce
 from .labeled import Coord, LabeledArray
 from .ops import fft_core
 
-__all__ = ["fft", "ifft"]
+__all__ = ["fft", "ifft", "dft", "idft"]
 
 _real_flag_warning = (
     "`real` flag will be deprecated in future version of xrft_tpu.fft and "
@@ -31,6 +33,18 @@ def _not_ported(what: str, slice_: str):
         f"{what} is not ported to xrft_tpu_torch yet; it comes with the "
         f"{slice_} slice (ROADMAP.md, Queue 1)"
     )
+
+
+def _reject_segments(chunks_to_segments, segment_overlap=None):
+    if chunks_to_segments or segment_overlap is not None:
+        raise _not_ported("chunks_to_segments/segment_overlap",
+                          "segments and short-time")
+
+
+def _check_engine(engine):
+    """Every ``engine`` but None and "hp" belongs to the sharded slice."""
+    if engine is not None:
+        raise _not_ported(f"engine={engine!r}", "sharded path")
 
 
 def _move_to_end(lst, el):
@@ -98,22 +112,27 @@ def fft(
       ``exp(-2i*pi*f*lag)``; each frequency coordinate records its
       ``direct_lag`` attr.
     - ``true_amplitude=True`` multiplies by the product of grid spacings.
+    - ``engine="hp"`` runs every stage in float64/complex128
+      (:func:`~xrft_tpu_torch.highprec.fft_hp`).
 
-    ``chunks_to_segments``, ``segment_overlap`` and ``engine`` are not
-    ported yet and raise NotImplementedError.
+    ``chunks_to_segments``, ``segment_overlap`` and any other ``engine`` are
+    not ported yet and raise NotImplementedError.
     """
-    if chunks_to_segments or segment_overlap is not None:
-        raise _not_ported("chunks_to_segments/segment_overlap",
-                          "segments and short-time")
-    if engine is not None:
-        raise _not_ported(f"engine={engine!r}",
-                          "float64 precision path" if engine == "hp"
-                          else "sharded path")
     dim = _norm_dim(da, dim)
 
     if real is not None:
         real_dim = real
         warnings.warn(_real_flag_warning, FutureWarning)
+
+    if engine == "hp":
+        from .highprec import fft_hp
+
+        return fft_hp(da, spacing_tol, dim, real_dim, shift, detrend, window,
+                      true_phase, true_amplitude, prefix,
+                      chunks_to_segments=chunks_to_segments,
+                      segment_overlap=segment_overlap)
+    _check_engine(engine)
+    _reject_segments(chunks_to_segments, segment_overlap)
 
     if real_dim is not None:
         if real_dim not in da.dims:
@@ -214,6 +233,239 @@ def fft(
     return daft.transpose(*[swap.get(d, d) for d in rawdims])
 
 
-def ifft(*args, **kwargs):
-    """Not ported yet (``xrft_tpu.ifft``)."""
-    raise _not_ported("ifft", "ifft")
+_LAG_NONE_WARNING = (
+    "Default ifft's behaviour (lag=None) changed! Default value of lag was "
+    "zero (centered output coordinates) and is now set to transformed "
+    "coordinate's attribute: 'direct_lag'."
+)
+
+
+def _direct_lags(daft: LabeledArray, dim) -> list:
+    """Each dim's ``direct_lag`` attr, 0.0 where there is none."""
+    return [daft.coords[d].attrs.get("direct_lag", 0.0)
+            if d in daft.coords else 0.0 for d in dim]
+
+
+def _explicit_lags(daft: LabeledArray, dim, lag, warn=False) -> list:
+    """A user's ``lag`` (a number or one entry per dim, None taking the
+    dim's ``direct_lag``) as one lag per dim; ``warn`` says that no phase
+    will be applied to honour it."""
+    if isinstance(lag, (float, int)):
+        lag = [lag]
+    if len(dim) != len(lag):
+        raise ValueError("dim and lag must have the same length.")
+    if warn:
+        warnings.warn(
+            "Setting lag with true_phase=False does not guarantee accurate "
+            "ifft.",
+            Warning,
+        )
+    return [dl if l is None else l
+            for dl, l in zip(_direct_lags(daft, dim), lag)]
+
+
+def ifft(
+    daft: LabeledArray,
+    spacing_tol: float = 1e-3,
+    dim=None,
+    real_dim: str | None = None,
+    shift: bool = True,
+    true_phase: bool = True,
+    true_amplitude: bool = True,
+    chunks_to_segments: bool = False,
+    prefix: str = "freq_",
+    lag=None,
+    real: str | None = None,
+    engine: str | None = None,
+) -> LabeledArray:
+    """Inverse discrete Fourier transform of `daft` along `dim`, with the
+    semantics of ``xrft_tpu.ifft``: ``lag`` sets each output coordinate's
+    offset (``None`` reads each dim's ``direct_lag`` attr, with a
+    FutureWarning); with ``true_phase`` the input is pre-multiplied by
+    ``exp(+2i*pi*f*lag)``; frequency coordinates are sorted and must be
+    centered on zero; output coordinates are the inverse grids plus the lag;
+    ``true_amplitude`` divides by the product of output spacings.
+    ``real_dim`` takes an irfft along that dim.  ``engine="hp"`` runs in
+    complex128 (:func:`~xrft_tpu_torch.highprec.ifft_hp`).
+    ``chunks_to_segments`` and any other ``engine`` raise
+    NotImplementedError.
+    """
+    dim = _norm_dim(daft, dim)
+
+    if real is not None:
+        real_dim = real
+        warnings.warn(_real_flag_warning, FutureWarning)
+
+    if engine == "hp":
+        from .highprec import ifft_hp
+
+        return ifft_hp(daft, spacing_tol, dim, real_dim, shift, true_phase,
+                       true_amplitude, prefix, lag, chunks_to_segments)
+    _check_engine(engine)
+    _reject_segments(chunks_to_segments)
+
+    dim = _ifft_dims(daft, dim, real_dim)
+    if lag is None:
+        lag = _direct_lags(daft, dim)
+        warnings.warn(_LAG_NONE_WARNING, FutureWarning)
+    else:
+        lag = _explicit_lags(daft, dim, lag, warn=not true_phase)
+    return _ifft_resolved(daft, spacing_tol, dim, real_dim, shift,
+                          true_phase, true_amplitude, prefix, lag)
+
+
+def _ifft_dims(daft: LabeledArray, dim, real_dim) -> list:
+    """``dim`` with ``real_dim`` moved last, after the checks of
+    ``xrft_tpu/transform.py:441-449``."""
+    if real_dim is not None:
+        if real_dim not in daft.dims:
+            raise ValueError(
+                "The dimension along which real IFT is taken must be one of "
+                "the existing dimensions."
+            )
+        dim = _move_to_end(dim, real_dim)
+    ce.check_valid_fft_coords(daft, dim)
+    return dim
+
+
+def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
+                   true_phase, true_amplitude, prefix, lag) -> LabeledArray:
+    """The body of :func:`ifft` once ``dim`` is ordered and ``lag`` holds one
+    number per dim (``xrft_tpu/transform.py:480-615``)."""
+    if true_phase:
+        cdtype = torch.promote_types(daft.dtype, torch.complex64)
+        for d, l in zip(dim, lag):
+            if float(l) == 0.0:
+                continue  # exp(0) = 1: skip the identity multiply pass
+            c = _dim_coord(daft, d)
+            theta = 2.0 * np.pi * c.values * float(l)
+            phase = torch.as_tensor(np.cos(theta) + 1j * np.sin(theta),
+                                    dtype=cdtype, device=daft.device)
+            pl = LabeledArray(phase, dims=(d,),
+                              coords={d: c} if d in daft.coords else None)
+            daft = daft * pl
+
+    rawdims = daft.dims
+
+    if real_dim is not None:
+        daft = daft.transpose(*_move_to_end(list(daft.dims), real_dim))
+
+    axis_num = [daft.get_axis_num(d) for d in dim]
+    N = [daft.shape[n] for n in axis_num]
+
+    # Sort by coordinates.  A frequency order that is a cyclic roll of
+    # ascending order (natural fftfreq order is the common case) moves no
+    # data here: the coordinates are reordered on the host and the data roll
+    # composes with the input ifftshift below, into nothing at all for
+    # natural order.  Other permutations, and the one-sided real axis, are
+    # sorted on the device.
+    sort_rolls: dict[str, int] = {}
+    device_sort = []
+    for d in dim:
+        if d not in daft.coords:
+            continue
+        v = daft.coords[d].values
+        n_d = v.shape[0]
+        order = np.argsort(v, kind="stable")
+        if np.array_equal(order, np.arange(n_d)):
+            continue
+        k0 = int(order[0])
+        if d != real_dim and np.array_equal(order, (np.arange(n_d) + k0) % n_d):
+            sort_rolls[d] = k0
+            for cname, c in list(daft.coords.items()):
+                if d in c.dims:
+                    daft = daft.assign_coords({cname: c.copy(
+                        values=np.take(c.values, order, axis=c.dims.index(d)))})
+        else:
+            device_sort.append(d)
+    if device_sort:
+        daft = daft.sortby(device_sort)
+
+    delta_x = [
+        ce.get_coordinate_spacing(_dim_coord(daft, d), spacing_tol) for d in dim
+    ]
+    for d in dim:
+        c = _dim_coord(daft, d)
+        l = ce.lag_coord(c) if d != real_dim else c.values[0]
+        if np.abs(l) > spacing_tol:
+            raise ValueError(
+                "Inverse Fourier Transform can not be computed because "
+                f"coordinate {d} is not centered on zero frequency"
+            )
+
+    # input shift per non-real axis: the ifftshift (a roll by -(n//2))
+    # composed with any deferred sort roll (a roll by -k0); a total of 0
+    # moves nothing, otherwise one roll replaces the sort
+    axis_shift = []
+    data = daft.data
+    for d in dim:
+        if d == real_dim:
+            continue
+        ax = daft.get_axis_num(d)
+        if d in sort_rolls:
+            n_d = daft.shape[ax]
+            amt = (-(sort_rolls[d] + n_d // 2)) % n_d
+            if amt == (-(n_d // 2)) % n_d:
+                axis_shift.append(ax)
+            elif amt:
+                data = torch.roll(data, amt if amt <= n_d // 2 else amt - n_d,
+                                  ax)
+        else:
+            axis_shift.append(ax)
+
+    # output shift: fftshift o ifftshift is the identity, so three cases
+    if true_phase and shift:
+        post_axes, post_kind = axis_num, "fftshift"
+    elif (not true_phase) and (not shift):
+        post_axes, post_kind = axis_num, "ifftshift"
+    else:
+        post_axes, post_kind = (), "fftshift"
+
+    core = fft_core.ifftn if real_dim is None else fft_core.irfftn
+    f = core(data, axis_num, pre_shift_axes=axis_shift,
+             post_shift_axes=post_axes, post_kind=post_kind)
+
+    k = ce.ifreq_grids(N, delta_x, real_dim is not None, shift)
+
+    swap = {d: ce.freq_dim_name(d, prefix) for d in dim}
+    out_dims = [swap.get(d, d) for d in daft.dims]
+    out_coords = {cname: c.copy() for cname, c in daft.coords.items()
+                  if cname not in dim}
+    out_spacing = []
+    for d, kk, l in zip(dim, k, lag):
+        spacing = kk[1] - kk[0]
+        out_spacing.append(spacing)
+        out_coords[swap[d]] = Coord((swap[d],), kk + l, {"spacing": spacing},
+                                    swap[d])
+
+    out = LabeledArray(f, dims=out_dims, coords=out_coords, name=daft.name)
+
+    if true_amplitude:
+        out = out / float(np.prod(out_spacing))
+
+    out.name = daft.name
+    return out.transpose(*[swap.get(d, d) for d in rawdims])
+
+
+def dft(da, dim=None, true_phase=False, true_amplitude=False, **kwargs):
+    """Deprecated alias of :func:`fft` with the legacy phase and amplitude
+    defaults (``xrft_tpu.dft``)."""
+    warnings.warn(
+        "This function has been renamed and will disappear in the future. "
+        "Please use `fft` instead",
+        FutureWarning,
+    )
+    return fft(da, dim=dim, true_phase=true_phase,
+               true_amplitude=true_amplitude, **kwargs)
+
+
+def idft(daft, dim=None, true_phase=False, true_amplitude=False, **kwargs):
+    """Deprecated alias of :func:`ifft` with the legacy phase and amplitude
+    defaults (``xrft_tpu.idft``)."""
+    warnings.warn(
+        "This function has been renamed and will disappear in the future. "
+        "Please use `ifft` instead",
+        FutureWarning,
+    )
+    return ifft(daft, dim=dim, true_phase=true_phase,
+                true_amplitude=true_amplitude, **kwargs)
