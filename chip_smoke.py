@@ -20,9 +20,19 @@ PyTorch version on the card, and drives four paths at full width:
     1024^2 field against the numpy float64 closed form, the hp roundtrips,
     the hp fft at 2048^2 and the isotropic hp spectrum;
   * the inverse flagship, ``ifft`` of an 8 x 4096 x 2049 complex64 half
-    spectrum to 8 x 4096 x 4096, under cuFFT and under K2 with sign +1.
+    spectrum to 8 x 4096 x 4096, under cuFFT and under K2 with sign +1;
+  * the matmul route, the flagship PSD under ``fft_impl="matmul"`` with its
+    level-0 product on K5a, unpacked and packed;
+  * the segmented estimators at full width: the Welch flagship (8 x 4096^2
+    in 1024^2 hann segments, without and with 50% overlap) under cuFFT and
+    the matmul route, the spectrogram, stft/istft and csd/coherence of
+    8 x 2^22-sample series, and the hp Welch of one 1024^2 field against
+    numpy float64.
 
-It times each path and each kernel beside its plain version.  Every phase
+It times each path and each kernel beside its plain version, the one
+PyTorch call that computes the same function where there is one, and the
+least time the card could take (bytes at 3.35 TB/s or operations at the
+FP32/FP64 peak, whichever is longer).  Every phase
 raises on failure; nothing is caught.  Its output ends with the card's name
 and power limit, one JSON line on the kernels, and the JSON status line.
 It fails, and prints no result, without a CUDA device or outside a checkout.
@@ -57,8 +67,20 @@ INV_KW = dict(dim=["freq_y", "freq_x"], real_dim="freq_x", shift=False,
 K4_SHAPES = ((131072, 256), (524288, 256), (8388608, 16), (32768, 4096))
 K4_MAIN = {(524288, 256), (8388608, 16)}
 RUNS = 7                       # timed runs per measurement, after warm-up
-SOURCES = ("mirror", "fft_fourstep", "binned_sum", "dft64")
+SOURCES = ("mirror", "fft_fourstep", "binned_sum", "dft64", "dot")
+# K5's shapes: the flagship's level-0 operand (the x axis split (32, 128):
+# 8*4096 blocks of 32 x 128) and the packed A/B shape
+# (scripts/perf_pallas_dot.py:91-146)
+K5_ENGINE = (MAIN_SHAPE[0] * MAIN_SHAPE[1], 32, 128)
+K5_PACKED_N = 1 << 20
+WELCH_SEG = 1024               # bench.py:385-411
+SG_SHAPE, SG_SEG, SG_DT = (8, 1 << 22), 4096, 2.5e-4   # bench.py:413-445
+HP_WELCH_N, HP_WELCH_SEG = 1024, 256
+# H100 SXM peaks (NVIDIA's data sheet): HBM3, FP32 outside the tensor cores,
+# FP64 on the tensor cores
+HBM_BYTES_S, FP32_FLOP_S, FP64_FLOP_S = 3.35e12, 67e12, 67e12
 T0 = time.perf_counter()
+DEV = "cuda"
 
 
 def log(*args):
@@ -81,6 +103,20 @@ def rel_err(got, ref) -> float:
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+def bound(nbytes, flops, peak=FP32_FLOP_S):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and do
+    ``flops``, whichever takes longer."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def fft_flops(rows, n):
+    """5 n log2 n per complex row: the operation count of a radix-2 FFT, the
+    least any DFT algorithm is held to here."""
+    return 5.0 * n * np.log2(n) * rows
 
 
 def wall_ms(fn, runs=RUNS, warmup=2):
@@ -112,8 +148,8 @@ def ab_ms(plain, kernel, rounds=RUNS):
 
 
 def field(shape, seed, dtype=torch.float32):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEV, dtype=dtype)
 
 
 def labeled(xt, data):
@@ -175,7 +211,7 @@ def k3_phase(binning, card):
     for name, (codes, nbins), batch in cases:
         plan = binning.BinPlan(codes, nbins)
         t0 = time.perf_counter()
-        plan.on("cuda")
+        plan.on(DEV)
         log(f"phase 6: K3 plan {name} ({codes.size} points, {nbins} bins) "
             f"built and copied in {time.perf_counter() - t0:.3f} s")
         shape = batch + (codes.size,)
@@ -211,14 +247,25 @@ def k3_phase(binning, card):
             x = field(shape, 8)
             tp, tk = ab_ms(lambda: binning.binned_sum_plain(x, plan),
                            lambda: binning.binned_sum(x, plan))
+            # the one PyTorch call: index_add_ along the point axis, the
+            # out-of-range points into a spare bin
+            idx = torch.as_tensor(np.where(codes >= 0, codes, nbins),
+                                  dtype=torch.long, device=DEV)
+            spare = torch.zeros(batch + (nbins + 1,), device=DEV)
+            t_lib = wall_ms(lambda: spare.zero_().index_add_(1, idx, x))
             gbytes = (codes.size * 4 + x.numel() * 4) / 1e9
             log(f"phase 6: K3 {name} {tuple(shape)} float32: kernel "
                 f"{tk:.3f} ms ({gbytes / tk * 1e3:.0f} GB/s of the "
                 f"{gbytes:.3f} GB of index and data it reads), plain "
-                f"{tp:.3f} ms [{card}]")
+                f"{tp:.3f} ms, index_add_ {t_lib:.3f} ms [{card}]")
             if name == "full":
-                result["ms"], result["plain_ms"] = tk, tp
-            del x
+                nbytes = x.numel() * 4 + x.shape[0] * nbins * 4 + sum(
+                    t.numel() * t.element_size()
+                    for t in plan.on(DEV).values())
+                b_ms, b_by = bound(nbytes, x.numel())
+                result.update(ms=tk, plain_ms=tp, library_ms=t_lib,
+                              bound_ms=b_ms, bound_by=b_by)
+            del x, idx, spare
     return result
 
 
@@ -371,7 +418,9 @@ def k4_phase(dft64, card):
     """K4 against its plain version (n <= 256) and complex128 cuFFT, with
     two launches compared bit for bit, then timed against both; returns its
     error and times at the hp path's two shapes."""
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+              "library_ms": 0.0}
+    nbytes = flops = 0.0
     for rows, n in K4_SHAPES:
         x = field((rows, n), 11, torch.complex128)
         signs = (-1, 1) if (rows, n) not in K4_MAIN else (-1,)
@@ -405,6 +454,9 @@ def k4_phase(dft64, card):
             if (rows, n) in K4_MAIN:
                 result["ms"] += tk
                 result["plain_ms"] += tp
+                result["library_ms"] += t_cufft
+                nbytes += 2 * rows * n * 16
+                flops += fft_flops(rows, n)
             log(f"phase 9: K4 ({rows}, {n}): kernel {tk:.3f} ms "
                 f"({rows * n * n * 8 / tk / 1e9:.2f} TFLOP/s FP64), plain "
                 f"x @ W {tp:.3f} ms, cuFFT {t_cufft:.3f} ms [{card}]")
@@ -413,6 +465,7 @@ def k4_phase(dft64, card):
             log(f"phase 9: K4 recursion ({rows}, {n}): {tk:.3f} ms, cuFFT "
                 f"{t_cufft:.3f} ms [{card}]")
         del x
+    result["bound_ms"], result["bound_by"] = bound(nbytes, flops, FP64_FLOP_S)
     return result
 
 
@@ -618,6 +671,272 @@ def inverse_phase(xt, fft_fourstep, card):
                      f"phase 11: inverse flagship, {impl!r}", card)
 
 
+def k5_phase(dot, card):
+    """K5a and K5c against their plain version at the flagship's level-0
+    operand and at the packed A/B shape, K5c against K5a bit for bit, K5b
+    at the packed shape; then each timed against its plain version and
+    torch.matmul.  Returns the kernels' entries."""
+    w = field((64, 32), 21)
+    wp = dot.pack_block_diag(w, 4)                       # (256, 128)
+    cases = {"engine": (w, field(K5_ENGINE, 22)),
+             "packed": (wp, field((128, K5_PACKED_N), 23))}
+    out = {}
+    for name, (wm, xm) in cases.items():
+        got = dot.dot(wm, xm)
+        again = dot.dot(wm, xm)
+        dma = dot.dot_dma(wm, xm)
+        plain = dot.dot_plain(wm, xm)
+        torch.cuda.synchronize()
+        err = rel_err(got, plain)
+        check(err <= 1e-6, f"K5a {name}: rel err {err:.3e} vs plain > 1e-6")
+        check(torch.equal(got, again), f"K5a {name}: two launches differ")
+        check(torch.equal(got, dma), f"K5c {name}: differs from K5a")
+        max_abs = (got - plain).abs().max().item()
+        m, k = wm.shape
+        ncols = got.shape[1]
+        del got, again, dma, plain
+        tp, tk = ab_ms(lambda: dot.dot_plain(wm, xm),
+                       lambda: dot.dot(wm, xm))
+        ta, tc = ab_ms(lambda: dot.dot(wm, xm), lambda: dot.dot_dma(wm, xm))
+        t_lib = wall_ms(lambda: torch.matmul(wm, xm))
+        nbytes = (k + m) * ncols * 4 + m * k * 4
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * ncols)
+        log(f"phase 12: K5a/K5c {name} ({m},{k})@({k},{ncols}): rel err vs "
+            f"plain {err:.3e} (limit 1e-6), K5c == K5a bit for bit; K5a "
+            f"{tk:.3f} ms ({nbytes / tk / 1e6:.0f} GB/s, "
+            f"{2.0 * m * k * ncols / tk / 1e9:.1f} TFLOP/s, {b_ms / tk:.1%} "
+            f"of the {b_by} bound {b_ms:.3f} ms), K5c {tc:.3f} ms (K5a "
+            f"beside it {ta:.3f}), plain {tp:.3f} ms, torch.matmul "
+            f"{t_lib:.3f} ms [{card}]")
+        out[name] = dict(max_abs_err=max_abs, ms=tk, plain_ms=tp,
+                         library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                         dma_ms=tc)
+    wm, xm = cases["packed"]
+    got = dot.dot_fold(wm, xm)
+    plain = dot.dot_fold_plain(wm, xm)
+    torch.cuda.synchronize()
+    err = rel_err(got, plain)
+    check(err <= 1e-6, f"K5b: rel err {err:.3e} vs plain > 1e-6")
+    max_abs = (got - plain).abs().max().item()
+    del got, plain
+    tp, tk = ab_ms(lambda: dot.dot_fold_plain(wm, xm),
+                   lambda: dot.dot_fold(wm, xm))
+    # the library's product of the whole (256, 128) weight, then the fold:
+    # the same function and operations that the bound counts
+    def lib():
+        y = torch.matmul(wm, xm)
+        return y[:128] + 1e-38 * y[128:]
+    t_lib = wall_ms(lib)
+    nbytes = 2 * 128 * K5_PACKED_N * 4 + wm.numel() * 4
+    b_ms, b_by = bound(nbytes, 2.0 * 256 * 128 * K5_PACKED_N)
+    log(f"phase 12: K5b (256,128)@(128,{K5_PACKED_N}) folded to 128 rows: "
+        f"rel err vs plain {err:.3e} (limit 1e-6); kernel {tk:.3f} ms "
+        f"({b_ms / tk:.1%} of the {b_by} bound {b_ms:.3f} ms), plain "
+        f"{tp:.3f} ms, torch.matmul then the fold {t_lib:.3f} ms [{card}]")
+    out["fold"] = dict(max_abs_err=max_abs, ms=tk, plain_ms=tp,
+                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def plain64(xt, fn, *das, **kw):
+    """fn on float64 copies of the inputs through cuFFT and the plain
+    routes: the reference the float32 paths are held to."""
+    from xrft_tpu_torch.config import fft_impl, psd_mirror_impl
+
+    with fft_impl("torch"), psd_mirror_impl("plain"):
+        return fn(*[d.copy(data=d.data.double()) for d in das], **kw)
+
+
+def matmul_phase(xt, kernels, card):
+    """The flagship PSD under fft_impl="matmul", level-0 unpacked and
+    packed, against the float64 pipeline; K5a must launch once per call.
+    Returns every kernel's launches on the unpacked run."""
+    from xrft_tpu_torch.config import fft_impl, level0_impl
+
+    da = labeled(xt, field(MAIN_SHAPE, 0))
+    ref = plain64(xt, xt.power_spectrum, da, **MAIN_KW)
+    launches = {}
+    for impl in ("unpacked", "packed"):
+        for k in kernels.values():
+            k.launches = 0
+        with fft_impl("matmul"), level0_impl(impl):
+            ps = xt.power_spectrum(da, **MAIN_KW)
+        torch.cuda.synchronize()
+        launches[impl] = {n: k.launches for n, k in kernels.items()}
+        log(f"phase 13: matmul route {MAIN_SHAPE}, level0_impl={impl!r}: "
+            f"kernel launches {launches[impl]}")
+        check(launches[impl]["dot"] == 1,
+              f"K5a launched {launches[impl]['dot']} times, not once")
+        check(ps.dims == ("time", "freq_y", "freq_x")
+              and ps.shape == MAIN_SHAPE and ps.dtype == torch.float32
+              and bool(torch.isfinite(ps.data).all()),
+              f"matmul {impl}: unexpected output {ps!r}")
+        err = rel_err(ps.data, ref.data)
+        check(err <= 1e-5, f"matmul {impl}: rel err {err:.3e} vs float64")
+        log(f"phase 13: matmul route, {impl}: rel err vs float64 plain "
+            f"pipeline {err:.3e} (limit 1e-5)")
+        del ps
+    del ref
+
+    def run(impl, level0="unpacked"):
+        def go():
+            with fft_impl(impl), level0_impl(level0):
+                xt.power_spectrum(da, **MAIN_KW)
+        return go
+
+    tt, tm = ab_ms(run("torch"), run("matmul"), rounds=3)
+    tpk = wall_ms(run("matmul", "packed"), runs=3)
+    log(f"phase 13: flagship PSD {MAIN_SHAPE}: fft_impl='torch' {tt:.3f} ms, "
+        f"'matmul' unpacked {tm:.3f} ms, packed {tpk:.3f} ms [{card}]")
+    device_split(run("matmul"), "phase 13: matmul route, unpacked", card)
+    device_split(run("matmul", "packed"), "phase 13: matmul route, packed",
+                 card)
+    return launches["unpacked"]
+
+
+def welch_oracle(v, dx, seg):
+    """The hp Welch PSD of one square field in numpy float64: hann
+    segments of seg^2, no detrend, density, averaged over the segments."""
+    n = v.shape[0]
+    s = v.reshape(n // seg, seg, n // seg, seg).transpose(0, 2, 1, 3)
+    w = sps.windows.hann(seg, sym=False)
+    F = np.fft.fftshift(np.fft.fft2(s * np.outer(w, w)), axes=(-2, -1))
+    F = F * dx * dx
+    return (np.abs(F) ** 2 * (1.0 / (seg * dx)) ** 2).mean(axis=(0, 1))
+
+
+def segments_phase(xt, k5a, card):
+    """The segmented estimators at full width against float64 pipelines,
+    each timed; under fft_impl="matmul" the Welch flagship must launch K5a.
+    Returns K5a's launches on the Welch flagship under "matmul"."""
+    from xrft_tpu_torch.config import fft_impl
+
+    da = labeled(xt, field(MAIN_SHAPE, 0)).chunk(
+        {"y": WELCH_SEG, "x": WELCH_SEG})
+    k5_launches = 0
+    for ov in (None, 0.5):
+        kw = dict(dim=["y", "x"], window="hann", chunks_to_segments=True,
+                  segment_overlap={"y": ov, "x": ov} if ov else None)
+        ref = plain64(xt, xt.power_spectrum, da, **kw)
+        runs = {}
+        for impl in ("torch", "matmul"):
+            k5a.launches = 0
+            with fft_impl(impl):
+                ps = xt.power_spectrum(da, **kw)
+            torch.cuda.synchronize()
+            n5 = k5a.launches
+            if impl == "matmul":
+                check(n5 > 0, "K5a was not launched on the Welch path")
+                if ov is None:
+                    k5_launches = n5
+            check(ps.shape == ref.shape and ps.dtype == torch.float32
+                  and bool(torch.isfinite(ps.data).all()),
+                  f"Welch {impl} overlap {ov}: unexpected output {ps!r}")
+            err = rel_err(ps.data, ref.data)
+            check(err <= 1e-5, f"Welch {impl} overlap {ov}: rel err "
+                               f"{err:.3e} vs float64")
+
+            def go(impl=impl):
+                with fft_impl(impl):
+                    xt.power_spectrum(da, **kw)
+            runs[impl] = go
+            log(f"phase 14: Welch flagship {MAIN_SHAPE} in {WELCH_SEG}^2 "
+                f"segments, overlap {ov}, fft_impl={impl!r}: output "
+                f"{tuple(ps.shape)}, rel err vs float64 {err:.3e} (limit "
+                f"1e-5), K5a launches {n5}")
+            del ps
+        del ref
+        tt, tm = ab_ms(runs["torch"], runs["matmul"], rounds=3)
+        log(f"phase 14: Welch flagship, overlap {ov}: fft_impl='torch' "
+            f"{tt:.3f} ms, 'matmul' {tm:.3f} ms [{card}]")
+        if ov is None:
+            device_split(runs["torch"], "phase 14: Welch flagship, 'torch'",
+                         card)
+            device_split(runs["matmul"],
+                         "phase 14: Welch flagship, 'matmul'", card)
+    del da
+
+    def series(seed):
+        return xt.LabeledArray(field(SG_SHAPE, seed), dims=("z", "t"),
+                               coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+
+    sig, sig2 = series(31), series(32)
+    sg_kw = dict(dim="t", seglen=SG_SEG, window="hann")
+    ref = plain64(xt, xt.spectrogram, sig, **sg_kw)
+    for impl in ("torch", "matmul"):
+        with fft_impl(impl):
+            sg = xt.spectrogram(sig, **sg_kw)
+            t_sg = wall_ms(lambda: xt.spectrogram(sig, **sg_kw), runs=3,
+                           warmup=1)
+        torch.cuda.synchronize()
+        err = rel_err(sg.data, ref.data)
+        check(sg.shape == ref.shape and err <= 1e-5,
+              f"spectrogram {impl}: {tuple(sg.shape)}, rel err {err:.3e}")
+        log(f"phase 14: spectrogram {SG_SHAPE}, {SG_SEG}-point hann, "
+            f"fft_impl={impl!r}: output {tuple(sg.shape)}, rel err vs "
+            f"float64 {err:.3e} (limit 1e-5), {t_sg:.3f} ms [{card}]")
+    del sg, ref
+
+    st_kw = dict(dim="t", seglen=SG_SEG, window="hann")
+    Z = xt.stft(sig, **st_kw)
+    Zref = plain64(xt, xt.stft, sig, **st_kw)
+    back = xt.istft(Z)
+    torch.cuda.synchronize()
+    e_z = rel_err(Z.data, Zref.data)
+    e_rt = rel_err(back.data, sig.data.double())
+    check(back.shape == sig.shape and e_z <= 1e-5 and e_rt <= 1e-5,
+          f"stft: rel err {e_z:.3e}, roundtrip {e_rt:.3e}")
+    t_st = wall_ms(lambda: xt.stft(sig, **st_kw), runs=3, warmup=1)
+    t_ist = wall_ms(lambda: xt.istft(Z), runs=3, warmup=1)
+    log(f"phase 14: stft {SG_SHAPE} -> {tuple(Z.shape)}: rel err vs float64 "
+        f"{e_z:.3e} (limit 1e-5), {t_st:.3f} ms; istft roundtrip rel err "
+        f"{e_rt:.3e} (limit 1e-5), {t_ist:.3f} ms [{card}]")
+    del Z, Zref, back
+
+    c = xt.csd(sig, sig2, dim="t", seglen=SG_SEG)
+    cref = plain64(xt, xt.csd, sig, sig2, dim="t", seglen=SG_SEG)
+    coh_kw = dict(dim="t", real_dim="t", chunks_to_segments=True,
+                  segment_overlap=0.5)
+    c1, c2 = sig.chunk({"t": SG_SEG}), sig2.chunk({"t": SG_SEG})
+    coh = xt.coherence(c1, c2, **coh_kw)
+    coh_ref = plain64(xt, xt.coherence, c1, c2, **coh_kw)
+    torch.cuda.synchronize()
+    e_c = rel_err(c.data, cref.data)
+    e_coh = (coh.data.double() - coh_ref.data).abs().max().item()
+    check(e_c <= 1e-5 and e_coh <= 1e-5,
+          f"csd rel err {e_c:.3e}, coherence abs err {e_coh:.3e}")
+    t_c = wall_ms(lambda: xt.csd(sig, sig2, dim="t", seglen=SG_SEG), runs=3,
+                  warmup=1)
+    t_coh = wall_ms(lambda: xt.coherence(c1, c2, **coh_kw), runs=3, warmup=1)
+    log(f"phase 14: csd {SG_SHAPE} x 2: rel err vs float64 {e_c:.3e} (limit "
+        f"1e-5), {t_c:.3f} ms; coherence: abs err {e_coh:.3e} (limit 1e-5), "
+        f"{t_coh:.3f} ms [{card}]")
+    del sig, sig2, c, cref, coh, coh_ref, c1, c2
+
+    n = HP_WELCH_N
+    dh = xt.LabeledArray(field((n, n), 33), dims=("y", "x"),
+                         coords={"y": np.arange(n) * 0.5,
+                                 "x": np.arange(n) * 0.5}).chunk(
+        {"y": HP_WELCH_SEG, "x": HP_WELCH_SEG})
+    oracle = welch_oracle(dh.values.astype(np.float64), 0.5, HP_WELCH_SEG)
+    hp_kw = dict(dim=["y", "x"], window="hann", chunks_to_segments=True,
+                 engine="hp")
+    for impl in ("torch", "matmul"):
+        with fft_impl(impl):
+            hp = xt.power_spectrum(dh, **hp_kw).mean(["y_segment",
+                                                      "x_segment"])
+            t_hp = wall_ms(lambda: xt.power_spectrum(dh, **hp_kw), runs=3,
+                           warmup=1)
+        e_hp = float(np.abs(hp.values - oracle).max() / oracle.max())
+        check(hp.dtype == torch.float64 and e_hp <= 1e-10,
+              f"hp Welch {impl}: rel err {e_hp:.3e} vs numpy float64")
+        log(f"phase 14: hp Welch {n}^2 in {HP_WELCH_SEG}^2 segments, "
+            f"fft_impl={impl!r}: rel err vs numpy float64 {e_hp:.3e} (limit "
+            f"1e-10), {t_hp:.3f} ms [{card}]")
+    return k5_launches
+
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -625,10 +944,9 @@ def main():
                          "(torch.cuda.is_available() is false)")
     import xrft_tpu_torch as xt
     from xrft_tpu_torch.config import fft_impl, psd_mirror_impl
-    from xrft_tpu_torch.ops import _build, binning, dft64, fft_fourstep, mirror
+    from xrft_tpu_torch.ops import (_build, binning, dft64, dot, fft_fourstep,
+                                    mirror)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
@@ -722,7 +1040,7 @@ def main():
     # the entry shape, with Parseval: sum(P) df_y df_x == mean(|w*detrended|^2)
     rng = np.random.RandomState(0)
     small = labeled(xt, torch.as_tensor(
-        rng.randn(*ENTRY_SHAPE).astype(np.float32), device="cuda"))
+        rng.randn(*ENTRY_SHAPE).astype(np.float32), device=DEV))
     ps = xt.power_spectrum(small, **MAIN_KW)
     from xrft_tpu_torch.ops.window import apply_window
 
@@ -762,12 +1080,13 @@ def main():
     k1_plain, k1_ms = ab_ms(lambda: mirror.mirror_psd_plain(F, 4096, True, 1.0),
                             lambda: mirror.mirror_psd(F, 4096, True, 1.0))
     gbytes = (F.numel() * 8 + 8 * 4096 * 4096 * 4) / 1e9
+    k1_bound = bound(gbytes * 1e9, 4.0 * 8 * 4096 * 4096)
     log(f"phase 5: K1 (8, 4096, 2049)->4096: kernel {k1_ms:.3f} ms "
         f"({gbytes / k1_ms * 1e3:.0f} GB/s of the {gbytes:.2f} GB it must move), "
         f"plain {k1_plain:.3f} ms [{card}]")
     del F
 
-    k2_ms = k2_plain = 0.0
+    k2_ms = k2_plain = k2_lib = k2_bytes = k2_flops = 0.0
     for rows, cplx in ((32768, False), (16392, True)):
         x = field((rows, 4096), 4, torch.complex64 if cplx else torch.float32)
         tp, tk = ab_ms(lambda: fft_fourstep.fft_last_plain(x),
@@ -775,6 +1094,9 @@ def main():
         t_cufft = wall_ms(lambda: torch.fft.fft(x))
         k2_ms += tk
         k2_plain += tp
+        k2_lib += t_cufft
+        k2_bytes += x.numel() * x.element_size() + rows * 4096 * 8
+        k2_flops += fft_flops(rows, 4096)
         log(f"phase 5: K2 ({rows}, 4096) {'complex' if cplx else 'real'}: "
             f"kernel {tk:.3f} ms, plain {tp:.3f} ms, torch.fft.fft (cuFFT) "
             f"{t_cufft:.3f} ms [{card}]")
@@ -792,24 +1114,58 @@ def main():
                                    "binned_sum": binning.binned_sum}, card)
     inverse_phase(xt, fft_fourstep, card)
 
+    # ---- phases 12-14: K5, the matmul route, the segmented estimators ----
+    k5 = k5_phase(dot, card)
+    k5_launches = matmul_phase(xt, {"dot": dot.dot, "dot_fold": dot.dot_fold,
+                                     "dot_dma": dot.dot_dma,
+                                     "mirror_psd": mirror.mirror_psd}, card)
+    welch_k5a = segments_phase(xt, dot.dot, card)
+    log(f"phase 14: K5a launches on the Welch flagship under 'matmul': "
+        f"{welch_k5a}")
+    k2_bound = bound(k2_bytes, k2_flops)
+    dot_src = "xrft_tpu_torch/csrc/dot.cu"
+    engine, packed = k5["engine"], k5["packed"]
+    log(f"K5 at the packed shape (256,128)@(128,{K5_PACKED_N}): K5a "
+        f"{packed['ms']:.3f} ms, K5c {packed['dma_ms']:.3f} ms, plain "
+        f"{packed['plain_ms']:.3f} ms, torch.matmul "
+        f"{packed['library_ms']:.3f} ms, {packed['bound_by']} bound "
+        f"{packed['bound_ms']:.3f} ms")
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "mirror_psd", "route": "cuda",
          "source": "xrft_tpu_torch/csrc/mirror.cu",
          "replaces": "xrft_tpu/ops/pallas_mirror.py:82",
          "launches": launches["mirror_psd"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "fft_fourstep", "route": "cuda",
          "source": "xrft_tpu_torch/csrc/fft_fourstep.cu",
          "replaces": "xrft_tpu/ops/pallas_fft.py:284",
          "launches": launches["fft_fourstep"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": k2_lib},
         {"name": "binned_sum", "route": "cuda",
          "source": "xrft_tpu_torch/csrc/binned_sum.cu",
          "replaces": "xrft_tpu/ops/binning.py:77", **k3},
         {"name": "dft64", "route": "cuda",
          "source": "xrft_tpu_torch/csrc/dft64.cu",
          "replaces": "xrft_tpu/ops/df64_fft.py:129", **k4},
+        {"name": "dot", "route": "cuda", "source": dot_src,
+         "replaces": "xrft_tpu/ops/pallas_dot.py:72",
+         "launches": k5_launches["dot"],
+         **{k: engine[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}},
+        {"name": "dot_fold", "route": "cuda", "source": dot_src,
+         "replaces": "xrft_tpu/ops/pallas_dot.py:112",
+         "launches": k5_launches["dot_fold"],
+         **k5["fold"]},
+        {"name": "dot_dma", "route": "cuda", "source": dot_src,
+         "replaces": "xrft_tpu/ops/pallas_dot.py:157",
+         "launches": k5_launches["dot_dma"],
+         "max_abs_err": engine["max_abs_err"], "ms": engine["dma_ms"],
+         "plain_ms": engine["plain_ms"], "bound_ms": engine["bound_ms"],
+         "bound_by": engine["bound_by"], "library_ms": engine["library_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,11 @@ torch = pytest.importorskip("torch")
 
 from xrft_tpu_torch import (LabeledArray, fft, ifft,
                             isotropic_cross_spectrum,
-                            isotropic_power_spectrum, power_spectrum)
-from xrft_tpu_torch.config import binned_sum_impl, fft_impl, psd_mirror_impl
-from xrft_tpu_torch.ops import binning, dft64, fft_fourstep, mirror
+                            isotropic_power_spectrum, pad, power_spectrum,
+                            welch)
+from xrft_tpu_torch.config import (binned_sum_impl, fft_impl, level0_impl,
+                                   psd_mirror_impl)
+from xrft_tpu_torch.ops import binning, dft64, dot, fft_fourstep, mirror
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +224,77 @@ def test_main_path_through_kernels(cuda, impl):
     torch.cuda.synchronize()
     assert got.data.is_cuda and got.dims == ref.dims
     assert _rel(got.data.double(), ref.data) <= 2e-6
+
+
+@pytest.mark.parametrize("m,k,shape", [
+    (64, 32, (32, 40000)),          # the engine's unpacked level-0 shape
+    (256, 128, (128, 8192)),        # the packed A/B shape
+    (64, 32, (300, 32, 32)),        # a digit axis in the middle, strided
+    (48, 24, (24, 1001)),           # ragged rows, columns and K
+    (10, 7, (3, 7, 13)),            # Q not a multiple of 4: scalar copies
+])
+def test_dot_kernels_match_plain(cuda, m, k, shape):
+    """K5a and K5c against their plain torch.matmul at 1e-6 of max, K5c
+    equal to K5a bit for bit, repeats bit-identical; K5b (M = 2K only)
+    against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(m * k)
+    w = torch.randn((m, k), generator=g, device=cuda)
+    x = torch.randn(shape, generator=g, device=cuda)
+    counts = (dot.dot.launches, dot.dot_dma.launches)
+    got = dot.dot(w, x)
+    again = dot.dot(w, x)
+    dma = dot.dot_dma(w, x)
+    assert (dot.dot.launches, dot.dot_dma.launches) == \
+        (counts[0] + 2, counts[1] + 1)
+    ref = dot.dot_plain(w, x)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert torch.equal(got, again) and torch.equal(got, dma)
+    assert _rel(got, ref) <= 1e-6
+    if m == 2 * k:
+        before = dot.dot_fold.launches
+        fold = dot.dot_fold(w, x)
+        assert dot.dot_fold.launches == before + 1
+        assert _rel(fold, dot.dot_fold_plain(w, x)) <= 1e-6
+    else:
+        with pytest.raises(ValueError, match="M == 2K"):
+            dot.dot_fold(w, x)
+
+
+@pytest.mark.parametrize("impl", ["unpacked", "packed"])
+def test_matmul_route_through_k5a(cuda, impl):
+    """The PSD and Welch under fft_impl="matmul" launch K5a once per call
+    and agree with cuFFT's float64 route to 2e-6 of max."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((4, 256, 1024), generator=g, device=cuda)
+    coords = {"y": np.arange(256) * 0.5, "x": np.arange(1024) * 0.5}
+    da = LabeledArray(x, ("time", "y", "x"), coords)
+    kw = dict(dim=["y", "x"], window="hann", detrend="linear")
+    before = dot.dot.launches
+    with fft_impl("matmul"), level0_impl(impl):
+        got = power_spectrum(da, **kw)
+        w = welch(da, dim="x", seglen=256)
+    assert dot.dot.launches == before + 2
+    ref = power_spectrum(da.copy(data=x.double()), **kw)
+    ref_w = welch(da.copy(data=x.double()), dim="x", seglen=256)
+    torch.cuda.synchronize()
+    assert got.data.is_cuda and got.dims == ref.dims
+    assert _rel(got.data.double(), ref.data) <= 2e-6
+    assert _rel(w.data.double(), ref_w.data) <= 2e-6
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("constant", {}), ("constant", dict(constant_values=dict(t=(1.0, 2.0)))),
+    ("edge", {}), ("reflect", {}), ("symmetric", {}), ("wrap", {}),
+])
+def test_pad_on_the_card_matches_numpy(cuda, mode, kw):
+    """pad runs on the card in every mode it takes there, equal to numpy's
+    pad bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((3, 40), generator=g, device=cuda)
+    da = LabeledArray(x, ("time", "t"), {"t": np.arange(40) * 0.5})
+    got = pad(da, dict(t=(7, 45)), mode=mode, **kw)
+    np_kw = dict(constant_values=(1.0, 2.0)) if kw else {}
+    want = np.pad(x.cpu().numpy(), ((0, 0), (7, 45)), mode=mode, **np_kw)
+    assert got.data.is_cuda
+    np.testing.assert_array_equal(got.data.cpu().numpy(), want)

@@ -58,7 +58,7 @@ def _assert_matches(got, ref, tol=TOL):
     r = np.asarray(ref.values)
     assert got.values.dtype == r.dtype
     assert _rel(got.values, r) <= tol
-    carried = from_reference(ref)
+    carried = from_reference(ref, device="cpu")
     assert carried.dtype == got.dtype and carried.dims == got.dims
     assert _rel(got.data, carried.data) <= tol
 
@@ -76,7 +76,7 @@ def _both(impl, name, *arrays, **kw):
     ref, ref_warn = _run(getattr(xrft_tpu, name), *arrays, **kw)
     with fft_impl(impl):
         got, got_warn = _run(getattr(xt, name),
-                             *[from_reference(a) for a in arrays], **kw)
+                             *[from_reference(a, device="cpu") for a in arrays], **kw)
     assert got_warn == ref_warn
     return got, ref
 
@@ -134,7 +134,7 @@ def test_psd_variants(impl, kw):
 def test_psd_rejects_like_reference(impl):
     da = _da(16)
     for fn, arr in ((xrft_tpu.power_spectrum, da),
-                    (xt.power_spectrum, from_reference(da))):
+                    (xt.power_spectrum, from_reference(da, device="cpu"))):
         with fft_impl(impl):
             with pytest.raises(ValueError, match="window_correction"):
                 fn(arr, dim=["y", "x"], window_correction=True, engine="hp")
@@ -173,7 +173,7 @@ def test_cross_spectrum_matches_numpy(impl):
     N, dx = 48, 0.25
     da1, da2 = _da(N, seed=7, dx=dx), _da(N, seed=8, dx=dx)
     with fft_impl(impl):
-        cs = xt.cross_spectrum(from_reference(da1), from_reference(da2),
+        cs = xt.cross_spectrum(from_reference(da1, device="cpu"), from_reference(da2, device="cpu"),
                                dim=["y", "x"], engine="hp", window="hann",
                                window_correction=True)
     w = sps.windows.hann(N, sym=False)
@@ -215,7 +215,7 @@ def test_rfft_hp_vs_numpy(impl):
     N, dx = 64, 0.5
     da = _da(N, seed=3, dx=dx)
     with fft_impl(impl):
-        ft = xt.fft(from_reference(da), dim=["y", "x"], real_dim="x",
+        ft = xt.fft(from_reference(da, device="cpu"), dim=["y", "x"], real_dim="x",
                     engine="hp")
     v = np.asarray(da.values, np.float64)
     lag_y, lag_x = da.coords["y"].values[N // 2], da.coords["x"].values[N // 2]
@@ -237,7 +237,7 @@ def test_fft_ifft_hp_roundtrip(impl, real):
                                coords={"t": np.arange(N) * 0.25})
     kw = dict(dim="t", real_dim="t") if real else dict(dim="t")
     with fft_impl(impl):
-        ft = xt.fft(from_reference(da), engine="hp", **kw)
+        ft = xt.fft(from_reference(da, device="cpu"), engine="hp", **kw)
     ref_ft = xrft_tpu.fft(da, engine="hp", **kw)
     _assert_matches(ft, ref_ft)
     ikw = dict(dim="freq_t", engine="hp",
@@ -347,7 +347,7 @@ def test_ifft64_sorts_before_the_centering_check(impl, order):
         got, ref = _both(impl, "ifft64", daft, dim="freq_x", **kw)
         _assert_matches(got, ref)
     off = daft.assign_coords(freq_x=(("freq_x",), f[perm] + 0.01))
-    for fn, arr in ((xrft_tpu.ifft64, off), (xt.ifft64, from_reference(off))):
+    for fn, arr in ((xrft_tpu.ifft64, off), (xt.ifft64, from_reference(off, device="cpu"))):
         with pytest.raises(ValueError, match="not centered"):
             fn(arr, dim="freq_x")
 
@@ -373,12 +373,18 @@ def test_isotropic_hp_conservation(impl):
 
 
 def test_hp_segments_and_other_engines_raise():
-    da = from_reference(_da(16))
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
-        xt.power_spectrum(da, dim="x", engine="hp", chunks_to_segments=True)
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
-        xt.fft(da, dim="x", engine="hp", chunks_to_segments=True)
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
+    da = from_reference(_da(16), device="cpu")
+    # hp segments are ported: without declared chunks they refuse as
+    # xrft_tpu does, and an overlap needs chunks_to_segments
+    for pkg, arr in ((xt, da), (xrft_tpu, _da(16))):
+        with pytest.raises(ValueError, match="requires declared chunks"):
+            pkg.power_spectrum(arr, dim="x", engine="hp",
+                               chunks_to_segments=True)
+        with pytest.raises(ValueError, match="requires declared chunks"):
+            pkg.fft(arr, dim="x", engine="hp", chunks_to_segments=True)
+        with pytest.raises(ValueError, match="requires chunks_to_segments"):
+            pkg.fft(arr, dim="x", engine="hp", segment_overlap=2)
+    with pytest.raises(ValueError, match="requires declared chunks"):
         xt.ifft(xt.fft(da, dim="x"), dim="freq_x", engine="hp", lag=0.0,
                 chunks_to_segments=True)
     for engine in ("xla", "matmul"):

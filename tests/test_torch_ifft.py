@@ -82,7 +82,7 @@ def _run(fn, *args, **kw):
 def _compare(ref_in, impl, tol, fn_ref=xrft_tpu.ifft, fn=xt.ifft, **kw):
     ref, ref_warn = _run(fn_ref, ref_in, **kw)
     with fft_impl(impl):
-        got, got_warn = _run(fn, from_reference(ref_in), **kw)
+        got, got_warn = _run(fn, from_reference(ref_in, device="cpu"), **kw)
     assert got_warn == ref_warn
     _assert_matches(got, ref, tol)
     return got
@@ -170,7 +170,7 @@ def test_centering_error(impl):
     c = ref_in.coords["freq_y"]
     off = ref_in.assign_coords(freq_y=(c.dims, c.values + 0.37 * (
         c.values[1] - c.values[0]), c.attrs))
-    for fn, arr in ((xrft_tpu.ifft, off), (xt.ifft, from_reference(off))):
+    for fn, arr in ((xrft_tpu.ifft, off), (xt.ifft, from_reference(off, device="cpu"))):
         with fft_impl(impl), warnings.catch_warnings():
             warnings.simplefilter("ignore")
             with pytest.raises(ValueError, match="not centered on zero "
@@ -192,7 +192,7 @@ def test_fft_ifft_roundtrip(real_dim, impl, dtype):
                                    dims=("time", "y", "x"), coords=coords,
                                    name="eta")
     with fft_impl(impl):
-        F = xt.fft(from_reference(ref_da), dim=["y", "x"], real_dim=real_dim)
+        F = xt.fft(from_reference(ref_da, device="cpu"), dim=["y", "x"], real_dim=real_dim)
     ref_F = xrft_tpu.fft(ref_da, dim=["y", "x"], real_dim=real_dim)
     kw = dict(dim=["freq_y", "freq_x"],
               real_dim=None if real_dim is None else "freq_x")
@@ -228,7 +228,7 @@ def test_dft_idft_aliases(impl):
 
 def test_lag_length_and_true_phase_warnings():
     ref_in = _spectrum((1, 256, 256), np.complex128)
-    for fn, arr in ((xrft_tpu.ifft, ref_in), (xt.ifft, from_reference(ref_in))):
+    for fn, arr in ((xrft_tpu.ifft, ref_in), (xt.ifft, from_reference(ref_in, device="cpu"))):
         with pytest.raises(ValueError, match="same length"):
             fn(arr, lag=[1.0], **BOTH)
         with pytest.raises(ValueError, match="real IFT"):
@@ -238,9 +238,13 @@ def test_lag_length_and_true_phase_warnings():
 
 
 def test_unported_options_raise():
-    da = from_reference(_spectrum((1, 256, 256), np.complex128))
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
+    da = from_reference(_spectrum((1, 256, 256), np.complex128), device="cpu")
+    # segments are ported: without declared chunks both packages refuse
+    with pytest.raises(ValueError, match="requires declared chunks"):
         xt.ifft(da, chunks_to_segments=True, **BOTH)
+    with pytest.raises(ValueError, match="requires declared chunks"):
+        xrft_tpu.ifft(_spectrum((1, 256, 256), np.complex128),
+                      chunks_to_segments=True, **BOTH)
     with pytest.raises(NotImplementedError, match="sharded path"):
         xt.ifft(da, engine="xla", **BOTH)
 
@@ -251,10 +255,10 @@ def test_sortby_matches_reference():
         rng.randn(3, 7), dims=("a", "b"),
         coords={"a": np.array([2.0, -1.0, 0.5]),
                 "b": rng.permutation(7).astype(float)})
-    got = from_reference(ref).sortby(["a", "b"])
+    got = from_reference(ref, device="cpu").sortby(["a", "b"])
     want = ref.sortby(["a", "b"])
     npt.assert_array_equal(got.values, want.values)
     for c in ("a", "b"):
         npt.assert_array_equal(got.coords[c].values, want.coords[c].values)
     with pytest.raises(KeyError):
-        from_reference(ref).sortby("c")
+        from_reference(ref, device="cpu").sortby("c")

@@ -78,7 +78,7 @@ def test_isotropize_matches_reference(case, dtype, truncate, impl):
     (shape, dims), fftdim, kw = ISO_CASES[case]
     ps_ref = xrft_tpu.power_spectrum(_ref(shape, dtype, dims=dims),
                                      dim=[d[5:] for d in fftdim])
-    ps = from_reference(ps_ref)
+    ps = from_reference(ps_ref, device="cpu")
     ctx = pytest.warns(FutureWarning, match="Nyquist") if not truncate \
         else warnings.catch_warnings()
     with ctx:
@@ -103,7 +103,7 @@ def test_isotropize_keeps_extra_coords_and_non_trailing_dims():
     # the transform dims interleaved with a batch dim: data are reordered
     ps_ref = ps_ref.transpose("freq_y", "time", "freq_x", "z")
     ref = xrft_tpu.isotropize(ps_ref, ["freq_y", "freq_x"])
-    got = xt.isotropize(from_reference(ps_ref), ["freq_y", "freq_x"])
+    got = xt.isotropize(from_reference(ps_ref, device="cpu"), ["freq_y", "freq_x"])
     assert got.dims == ("time", "z", "freq_r")
     _assert_matches(got, ref, TOL[np.float64])
 
@@ -112,7 +112,7 @@ def test_isotropize_complex_keeps_or_drops_imaginary_part():
     cs_ref = xrft_tpu.cross_spectrum(_ref((2, 24, 20), seed=1),
                                      _ref((2, 24, 20), seed=2),
                                      dim=["y", "x"])
-    cs = from_reference(cs_ref)
+    cs = from_reference(cs_ref, device="cpu")
     for complx in (True, False):
         ref = xrft_tpu.isotropize(cs_ref, ["freq_y", "freq_x"],
                                   complx=complx)
@@ -124,7 +124,7 @@ def test_isotropize_complex_keeps_or_drops_imaginary_part():
 def test_radial_plan_is_cached_per_grid():
     from xrft_tpu_torch.isotropic import _radial_plan
 
-    ps = xt.power_spectrum(from_reference(_ref((2, 20, 18), seed=4)),
+    ps = xt.power_spectrum(from_reference(_ref((2, 20, 18), seed=4), device="cpu"),
                            dim=["y", "x"])
     _radial_plan.cache_clear()
     a = xt.isotropize(ps, ["freq_y", "freq_x"])
@@ -146,7 +146,7 @@ def test_isotropic_power_spectrum_entry_shape(dtype, scaling, impl):
     ref_in = _ref((4, 256, 256), dtype)
     ref = xrft_tpu.isotropic_power_spectrum(ref_in, scaling=scaling, **MAIN)
     with binned_sum_impl(impl):
-        got = xt.isotropic_power_spectrum(from_reference(ref_in),
+        got = xt.isotropic_power_spectrum(from_reference(ref_in, device="cpu"),
                                           scaling=scaling, **MAIN)
     assert got.dims == ("time", "freq_r") and got.shape == (4, 64)
     assert got.dtype == torch.as_tensor(np.zeros(0, dtype)).dtype
@@ -165,13 +165,13 @@ def test_isotropic_power_spectrum_options(kw):
     with pytest.warns(FutureWarning, match="Nyquist"):
         ref = xrft_tpu.isotropic_power_spectrum(ref_in, **kw)
     with pytest.warns(FutureWarning, match="Nyquist"):
-        got = xt.isotropic_power_spectrum(from_reference(ref_in), **kw)
+        got = xt.isotropic_power_spectrum(from_reference(ref_in, device="cpu"), **kw)
     _assert_matches(got, ref, TOL[np.float64])
 
 
 def test_isotropic_spectra_require_2d():
     da = xt.LabeledArray(np.random.rand(8), dims=("x",),
-                         coords={"x": np.arange(8.0)})
+                         coords={"x": np.arange(8.0)}, device="cpu")
     with pytest.raises(ValueError, match="two dimensional"):
         xt.isotropic_power_spectrum(da, dim=["x"])
     with pytest.raises(ValueError, match="two dimensional"):
@@ -184,7 +184,7 @@ def test_isotropic_cross_spectrum_matches_reference(dtype, impl):
     r1 = _ref((3, 40, 34), dtype, seed=1)
     r2 = _ref((3, 40, 34), dtype, seed=2)
     ref = xrft_tpu.isotropic_cross_spectrum(r1, r2, **MAIN)
-    p1, p2 = from_reference(r1), from_reference(r2)
+    p1, p2 = from_reference(r1, device="cpu"), from_reference(r2, device="cpu")
     with binned_sum_impl(impl):
         got = xt.isotropic_cross_spectrum(p1, p2, **MAIN)
         self_cs = xt.isotropic_cross_spectrum(p1, p1, **MAIN)
@@ -197,8 +197,8 @@ def test_isotropic_cross_spectrum_matches_reference(dtype, impl):
 
 
 def test_isotropic_cross_spectrum_rejects_different_dims():
-    da1 = xt.LabeledArray(np.zeros((8, 8)), dims=("y", "x"))
-    da3 = xt.LabeledArray(np.zeros((8, 8)), dims=("y", "z"))
+    da1 = xt.LabeledArray(np.zeros((8, 8)), dims=("y", "x"), device="cpu")
+    da3 = xt.LabeledArray(np.zeros((8, 8)), dims=("y", "z"), device="cpu")
     with pytest.raises(ValueError, match="different dimensions"):
         xt.isotropic_cross_spectrum(da1, da3)
 
@@ -243,7 +243,7 @@ def test_cross_spectrum_matches_reference(variant, decreasing):
     r1 = _ref(shape, seed=len(variant), decreasing=decreasing)
     r2 = _ref(shape, seed=len(variant) + 1, decreasing=decreasing)
     ref = xrft_tpu.cross_spectrum(r1, r2, **kw)
-    got = xt.cross_spectrum(from_reference(r1), from_reference(r2), **kw)
+    got = xt.cross_spectrum(from_reference(r1, device="cpu"), from_reference(r2, device="cpu"), **kw)
     assert got.name is None
     _assert_matches(got, ref, TOL[np.float64])
 
@@ -253,7 +253,7 @@ def test_cross_spectrum_float32_and_complex_input(dtype):
     kw = CROSS["main"][1]
     r1, r2 = _ref((3, 24, 20), dtype, seed=1), _ref((3, 24, 20), dtype, seed=2)
     ref = xrft_tpu.cross_spectrum(r1, r2, **kw)
-    got = xt.cross_spectrum(from_reference(r1), from_reference(r2), **kw)
+    got = xt.cross_spectrum(from_reference(r1, device="cpu"), from_reference(r2, device="cpu"), **kw)
     _assert_matches(got, ref, TOL[np.float32 if dtype == np.float32
                                   else np.float64])
 
@@ -262,18 +262,25 @@ def test_cross_spectrum_errors_and_flags():
     r1 = _ref((3, 24, 20), seed=1)
     r3 = _ref((3, 24, 20), seed=2, dims=("time", "y", "z"))
     with pytest.raises(ValueError, match="different dimensions"):
-        xt.cross_spectrum(from_reference(r1), from_reference(r3))
+        xt.cross_spectrum(from_reference(r1, device="cpu"), from_reference(r3, device="cpu"))
     with pytest.warns(FutureWarning, match="density flag"):
         ref = xrft_tpu.cross_spectrum(r1, r1, dim=["y", "x"], density=False)
     with pytest.warns(FutureWarning, match="density flag"):
-        got = xt.cross_spectrum(from_reference(r1), from_reference(r1),
+        got = xt.cross_spectrum(from_reference(r1, device="cpu"), from_reference(r1, device="cpu"),
                                 dim=["y", "x"], density=False)
     _assert_matches(got, ref, TOL[np.float64])
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
-        xt.cross_spectrum(from_reference(r1), from_reference(r1), dim="x",
+    with pytest.raises(ValueError, match="requires declared chunks"):
+        xt.cross_spectrum(from_reference(r1, device="cpu"),
+                          from_reference(r1, device="cpu"), dim="x",
                           chunks_to_segments=True)
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
-        coherence(from_reference(r1), from_reference(r1))
+    # coherence is ported: without segments it is identically 1, with a
+    # warning, in both packages
+    with pytest.warns(UserWarning, match="identically 1"):
+        ref = xrft_tpu.coherence(r1, r1, dim="x")
+    with pytest.warns(UserWarning, match="identically 1"):
+        got = coherence(from_reference(r1, device="cpu"),
+                        from_reference(r1, device="cpu"), dim="x")
+    _assert_matches(got, ref, TOL[np.float64])
 
 
 @pytest.mark.parametrize("kw", [dict(dim=["y", "x"]),
@@ -282,7 +289,7 @@ def test_cross_spectrum_errors_and_flags():
 def test_cross_phase_matches_reference(kw):
     r1, r2 = _ref((3, 24, 20), seed=1), _ref((3, 24, 20), seed=2, name="u")
     ref = xrft_tpu.cross_phase(r1, r2, **kw)
-    got = xt.cross_phase(from_reference(r1), from_reference(r2), **kw)
+    got = xt.cross_phase(from_reference(r1, device="cpu"), from_reference(r2, device="cpu"), **kw)
     assert got.name == ref.name == "eta_u_phase"
     assert got.dims == tuple(ref.dims)
     # angles compared on the circle: a real value whose imaginary part is
@@ -292,7 +299,7 @@ def test_cross_phase_matches_reference(kw):
 
 
 def test_conj_and_complex_values_cross_to_numpy():
-    z = xt.LabeledArray(np.array([1 + 2j, 3 - 1j]), dims=("x",), name="z")
+    z = xt.LabeledArray(np.array([1 + 2j, 3 - 1j]), dims=("x",), name="z", device="cpu")
     npt.assert_array_equal(z.conj().values, np.array([1 - 2j, 3 + 1j]))
     # imag of a lazy conj view is a lazy negative view
     npt.assert_array_equal(xt.LabeledArray(z.conj().data.imag, ("x",)).values,

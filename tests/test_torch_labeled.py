@@ -62,7 +62,7 @@ def test_interop_round_trip(dtype):
     ref = xrft_tpu.LabeledArray(ref.values.astype(dtype), dims=ref.dims,
                                 coords=ref.coords, attrs=ref.attrs,
                                 name=ref.name)
-    port = from_reference(ref)
+    port = from_reference(ref, device="cpu")
     assert isinstance(port.data, torch.Tensor)
     assert port.data.device.type == "cpu"
     assert port.values.dtype == np.dtype(dtype)
@@ -73,9 +73,9 @@ def test_interop_round_trip(dtype):
 
 def test_labeled_ops_match_reference():
     ref = _ref_array()
-    port = from_reference(ref)
+    port = from_reference(ref, device="cpu")
     w_ref = xrft_tpu.LabeledArray(np.arange(10.0) + 1, dims=("x",))
-    w = xt.LabeledArray(np.arange(10.0) + 1, dims=("x",))
+    w = xt.LabeledArray(np.arange(10.0) + 1, dims=("x",), device="cpu")
     for op in (lambda a, b: a * b, lambda a, b: a - b, lambda a, b: b / a,
                lambda a, b: a + 2.0, lambda a, b: 3.0 - a,
                lambda a, b: a ** 2):
@@ -89,10 +89,10 @@ def test_labeled_ops_match_reference():
     assert port.sizes == ref.sizes
     assert port.get_axis_num(["x", "y"]) == ref.get_axis_num(["x", "y"])
     with pytest.raises(ValueError, match="conflicting sizes"):
-        port * xt.LabeledArray(np.ones(3), dims=("x",))
+        port * xt.LabeledArray(np.ones(3), dims=("x",), device="cpu")
     with pytest.raises(ValueError, match="size"):
         xt.LabeledArray(np.ones((2, 3)), dims=("a", "b"),
-                        coords={"a": np.arange(3)})
+                        coords={"a": np.arange(3)}, device="cpu")
 
 
 def _coords():
@@ -139,7 +139,7 @@ def test_coord_validation_matches_reference():
     with pytest.raises(ValueError, match="unevenly spaced"):
         xt.get_spacing(xt.Coord("x", uneven, None, "x"))
     da = xt.LabeledArray(np.zeros(3), dims=("x",),
-                         coords={"x": np.array(["a", "b", "c"])})
+                         coords={"x": np.array(["a", "b", "c"])}, device="cpu")
     with pytest.raises(ValueError, match="numerical or datetime"):
         ce.check_valid_fft_coords(da, ["x"])
 
@@ -153,12 +153,12 @@ def test_detrend_matches_reference(dim, kind):
         ref.values + np.arange(10) * 0.3 - np.arange(8)[:, None] * 0.2,
         dims=ref.dims, coords=ref.coords, name=ref.name)
     exp = ref_detrend(ref, dim, detrend_type=kind)
-    got = xt.detrend(from_reference(ref), dim, detrend_type=kind)
+    got = xt.detrend(from_reference(ref, device="cpu"), dim, detrend_type=kind)
     assert got.dims == exp.dims and got.name == exp.name
     r = np.asarray(exp.values)
     assert np.abs(got.values - r).max() <= TOL * np.abs(r).max()
     with pytest.raises(NotImplementedError):
-        xt.detrend(from_reference(ref), dim, detrend_type="quadratic")
+        xt.detrend(from_reference(ref, device="cpu"), dim, detrend_type="quadratic")
 
 
 @pytest.mark.parametrize("window", ["hann", "hamming", "tukey", "flattop"])
@@ -166,17 +166,17 @@ def test_detrend_matches_reference(dim, kind):
 def test_apply_window_matches_reference(window, dims):
     ref = _ref_array(seed=3)
     w_ref, out_ref = ref_apply_window(ref, dims, window_type=window)
-    w, out = apply_window(from_reference(ref), dims, window_type=window)
+    w, out = apply_window(from_reference(ref, device="cpu"), dims, window_type=window)
     assert w.dims == w_ref.dims and out.dims == out_ref.dims
     npt.assert_allclose(w.values, np.asarray(w_ref.values), rtol=TOL)
     npt.assert_allclose(out.values, np.asarray(out_ref.values), rtol=TOL,
                         atol=TOL)
     with pytest.raises(NotImplementedError, match="not supported"):
-        apply_window(from_reference(ref), dims, window_type="nope")
+        apply_window(from_reference(ref, device="cpu"), dims, window_type="nope")
 
 
 def test_window_keeps_float32():
-    da = xt.LabeledArray(np.ones((4, 6), np.float32), dims=("y", "x"))
+    da = xt.LabeledArray(np.ones((4, 6), np.float32), dims=("y", "x"), device="cpu")
     w, out = apply_window(da, ["y", "x"])
     assert w.dtype == torch.float32 and out.dtype == torch.float32
 
@@ -197,7 +197,8 @@ def test_entry_shape_runs_with_jax_and_pandas_blocked():
         "da = xt.LabeledArray(np.random.RandomState(0).randn(B, N, N)"
         ".astype(np.float32), dims=('time', 'y', 'x'),\n"
         "    coords={'time': np.arange(B, dtype=np.float64),\n"
-        "            'y': np.arange(N) * 0.5, 'x': np.arange(N) * 0.5})\n"
+        "            'y': np.arange(N) * 0.5, 'x': np.arange(N) * 0.5},"
+        " device='cpu')\n"
         "ps = xt.power_spectrum(da, dim=['y', 'x'], window='hann',"
         " detrend='linear')\n"
         "assert ps.dims == ('time', 'freq_y', 'freq_x'), ps.dims\n"
@@ -214,6 +215,16 @@ def test_entry_shape_runs_with_jax_and_pandas_blocked():
         " detrend='linear', engine='hp')\n"
         "assert str(hp.dtype) == 'torch.float64' and hp.shape == (B, N, N)\n"
         "assert np.abs(hp.values - ps.values).max() < 1e-5 * ps.values.max()\n"
+        "from xrft_tpu_torch.config import fft_impl\n"
+        "with fft_impl('matmul'):\n"
+        "    pm = xt.power_spectrum(da, dim=['y', 'x'], window='hann',"
+        " detrend='linear')\n"
+        "assert np.abs(pm.values - ps.values).max() < 1e-5 * ps.values.max()\n"
+        "w = xt.welch(da, dim='x', seglen=64)\n"
+        "assert w.dims == ('time', 'y', 'freq_x') and w.shape == (B, N, 33)\n"
+        "Z = xt.stft(da, dim='x', seglen=64)\n"
+        "back = xt.istft(Z)\n"
+        "assert np.abs(back.values - da.values).max() < 1e-5\n"
         "assert 'pandas' not in {m.split('.')[0] for m, v in"
         " sys.modules.items() if v is not None}\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items()"
@@ -225,3 +236,50 @@ def test_entry_shape_runs_with_jax_and_pandas_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_host_data_goes_to_the_card_or_raises(monkeypatch):
+    """Host data with no device asked for land on the CUDA device; without
+    one they raise rather than run on the CPU.  device="cpu" and a CPU
+    tensor stay on the CPU."""
+    ref = _ref_array()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xt.LabeledArray(np.ones(3), dims=("x",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_reference(ref)
+    assert from_reference(ref, device="cpu").device.type == "cpu"
+    assert xt.LabeledArray(np.ones(3), dims=("x",),
+                           device="cpu").device.type == "cpu"
+    t = torch.ones(3)
+    da = xt.LabeledArray(t, dims=("x",))
+    assert da.device.type == "cpu" and da.data is t
+    ps = xt.power_spectrum(da.copy(data=torch.randn(16)), dim="x")
+    assert ps.device.type == "cpu"
+
+
+def test_products_leave_the_callers_tf32_setting_alone():
+    """Every product of the port runs at full float32 grade inside
+    config.full_fp32 and restores the caller's setting afterwards."""
+    from xrft_tpu_torch.config import fft_impl, full_fp32
+    from xrft_tpu_torch.ops import binning, dot, fft_fourstep
+
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with full_fp32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        dot.dot(torch.ones(4, 3), torch.ones(3, 5))
+        fft_fourstep.fft_last_plain(torch.ones(2, 256))
+        binning.binned_sum_plain(torch.ones(2, 6),
+                                 binning.BinPlan(np.arange(6) % 2, 2))
+        da = xt.LabeledArray(torch.randn(2, 32, 32), dims=("t", "y", "x"))
+        with fft_impl("matmul"):
+            xt.power_spectrum(da, dim=["y", "x"])
+        assert torch.backends.cuda.matmul.allow_tf32
+        torch.set_float32_matmul_precision("medium")
+        dot.dot_plain(torch.ones(4, 3), torch.ones(3, 5))
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(before)

@@ -32,7 +32,7 @@ def _pair(shape, dtype, seed=0, name="eta"):
               "x": np.arange(shape[2]) * 0.25 + 3.0}
     ref = xrft_tpu.LabeledArray(rng.randn(*shape).astype(dtype), dims=dims,
                                 coords=coords, name=name)
-    return ref, from_reference(ref)
+    return ref, from_reference(ref, device="cpu")
 
 
 def _assert_matches(got, ref, tol):
@@ -142,7 +142,7 @@ def test_complex_input(kw):
     ref_in = xrft_tpu.LabeledArray(z, dims=ref_in.dims, coords=ref_in.coords,
                                    name=ref_in.name)
     ref = xrft_tpu.power_spectrum(ref_in, **kw)
-    got = xt.power_spectrum(from_reference(ref_in), **kw)
+    got = xt.power_spectrum(from_reference(ref_in, device="cpu"), **kw)
     _assert_matches(got, ref, TOL[np.float64])
 
 
@@ -174,12 +174,17 @@ def test_fft_matches_reference(kw):
 
 
 def test_unported_options_raise():
-    _, da = _pair((4, 24, 20), np.float64)
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
-        xt.power_spectrum(da, dim="x", chunks_to_segments=True)
+    """The sharded engines are not ported; segments are, and refuse an
+    undeclared segment length as xrft_tpu does."""
+    ref_in, da = _pair((4, 24, 20), np.float64)
+    for pkg, arr in ((xt, da), (xrft_tpu, ref_in)):
+        with pytest.raises(ValueError, match="requires declared chunks"):
+            pkg.power_spectrum(arr, dim="x", chunks_to_segments=True)
+        with pytest.raises(ValueError, match="requires chunks_to_segments"):
+            pkg.power_spectrum(arr, dim="x", segment_overlap=0.5)
     with pytest.raises(NotImplementedError, match="sharded path"):
         xt.power_spectrum(da, dim=["y", "x"], engine="xla")
-    with pytest.raises(NotImplementedError, match="segments and short-time"):
+    with pytest.raises(ValueError, match="requires declared chunks"):
         xt.ifft(xt.fft(da, dim="x"), dim="freq_x", chunks_to_segments=True)
 
 

@@ -3,8 +3,9 @@
 Counterpart of ``xrft_tpu/config.py``, reduced to the knobs that mean
 something on a CUDA device: which route each hand-written kernel's step
 takes.  Everything else in the JAX package's config
-steers TPU-only machinery (matmul engines, split complex, df64) that this
-package does not carry.
+steers TPU-only machinery (split complex, df64) that this package does not
+carry.  :func:`full_fp32` is the one scoped switch of torch's own state:
+float32 products at full float32 grade for the duration of a call.
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ from __future__ import annotations
 import dataclasses
 from contextlib import contextmanager
 
-FFT_IMPLS = ("torch", "kernel")
+import torch
+
+FFT_IMPLS = ("torch", "kernel", "matmul")
+LEVEL0_IMPLS = ("unpacked", "packed")
 MIRROR_IMPLS = ("kernel", "plain")
 BINNED_SUM_IMPLS = ("kernel", "plain")
 
@@ -29,7 +33,28 @@ class _Config:
     #              float64 and complex128 data run the FP64 recursion with K4
     #              as its base case (ops/dft64.py), for lengths whose factors
     #              are <= 256.  Anything else raises.
+    #   "matmul" - the stacked matmul engine (ops/stacked_fft.py), the
+    #              counterpart of the JAX package's fft_engine="matmul": DFT
+    #              stages as dense products over radices <= direct_dft_max,
+    #              with the real-input level-0 product on the hand-written
+    #              kernel K5a (ops/dot.py) for float32 data on the card.  A
+    #              length it cannot plan, and irfftn, raise.
     fft_impl: str = "torch"
+    # Largest radix of the matmul engine's plans (xrft_tpu/config.py:30-36):
+    # a length up to it is one dense DFT product, a longer one a four-step
+    # chain of such products.  The radix plan, and so every product's shape,
+    # depends on it.
+    direct_dft_max: int = 128
+    # Layout of the matmul engine's real-input level-0 product, the
+    # counterpart of the JAX package's pallas_level0:
+    #   "unpacked" - W(2k, j) @ X(j, cols) on the engine's own layout, the
+    #                input read through its strides (no copy).
+    #   "packed"   - G=4 column blocks stacked along j against a
+    #                block-diagonal W(4*2k, 4*j), the TPU's fix for its
+    #                128x128 matrix unit; it costs an input and an output
+    #                relayout and four times the multiply-adds.
+    # Both run K5a on the card and its plain version on the CPU.
+    level0_impl: str = "unpacked"
     # Two-sided PSD epilogue of power_spectrum for real input:
     #   "kernel" - |F|^2, the scale, the y-fftshift and the Hermitian mirror
     #              in one pass (ops/mirror.py) whenever the two transform dims
@@ -65,6 +90,30 @@ def fft_impl(impl: str):
         yield
     finally:
         config.fft_impl = old
+
+
+@contextmanager
+def level0_impl(impl: str):
+    """Temporarily set ``config.level0_impl``."""
+    _check(impl, LEVEL0_IMPLS, "level0_impl")
+    old = config.level0_impl
+    config.level0_impl = impl
+    try:
+        yield
+    finally:
+        config.level0_impl = old
+
+
+@contextmanager
+def full_fp32():
+    """float32 matrix products at full float32 grade (no TF32) inside the
+    block; the caller's setting is restored on the way out."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
 
 
 @contextmanager

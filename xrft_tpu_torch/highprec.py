@@ -34,7 +34,7 @@ from .labeled import LabeledArray
 from .spectra import _doubling_vector
 from .transform import (_LAG_NONE_WARNING, _direct_lags, _explicit_lags,
                         _ifft_dims, _ifft_resolved, _norm_dim,
-                        _reject_segments, fft)
+                        _stack_segments, fft)
 
 __all__ = ["fft_hp", "ifft_hp", "power_spectrum_hp", "cross_spectrum_hp",
            "fft64", "ifft64"]
@@ -57,9 +57,14 @@ def fft_hp(da: LabeledArray, spacing_tol: float = 1e-3, dim=None,
            prefix: str = "freq_", chunks_to_segments: bool = False,
            segment_overlap=None) -> LabeledArray:
     """:func:`~xrft_tpu_torch.fft` in float64/complex128
-    (``xrft_tpu/highprec.py::fft_hp``): the data are promoted first, then
-    detrended, windowed and transformed at that precision."""
-    _reject_segments(chunks_to_segments, segment_overlap)
+    (``xrft_tpu/highprec.py::fft_hp``): the data are cut into segments
+    (``chunks_to_segments``) and promoted first, then detrended, windowed
+    and transformed at that precision."""
+    dim = _norm_dim(da, dim)
+    if segment_overlap is not None and not chunks_to_segments:
+        raise ValueError("segment_overlap requires chunks_to_segments=True")
+    if chunks_to_segments:
+        da = _stack_segments(da, dim, overlap=segment_overlap)
     return fft(_promote(da), spacing_tol, dim=dim, real_dim=real_dim,
                shift=shift, detrend=detrend, window=window,
                true_phase=true_phase, true_amplitude=true_amplitude,
@@ -73,9 +78,10 @@ def ifft_hp(daft: LabeledArray, spacing_tol: float = 1e-3, dim=None,
             chunks_to_segments: bool = False) -> LabeledArray:
     """:func:`~xrft_tpu_torch.ifft` in complex128
     (``xrft_tpu/highprec.py::ifft_hp``); an irfft gives float64.  It keeps
-    the input's name and the frequency coordinates' ``spacing`` attrs, and
-    warns about ``lag=None`` only where a non-zero lag is applied."""
-    _reject_segments(chunks_to_segments)
+    the input's name and the frequency coordinates' ``spacing`` attrs (not
+    under ``chunks_to_segments``: the segments carry neither, as in
+    ``xrft_tpu``), and warns about ``lag=None`` only where a non-zero lag is
+    applied."""
     dim = _ifft_dims(daft, _norm_dim(daft, dim), real_dim)
     if lag is None:
         lag = _direct_lags(daft, dim)
@@ -85,7 +91,9 @@ def ifft_hp(daft: LabeledArray, spacing_tol: float = 1e-3, dim=None,
         lag = _explicit_lags(daft, dim, lag, warn=not true_phase)
     out = _ifft_resolved(_promote(daft, complex_out=True), spacing_tol, dim,
                          real_dim, shift, true_phase, true_amplitude, prefix,
-                         lag)
+                         lag, chunks_to_segments)
+    if chunks_to_segments:
+        return out
     for d in dim:
         if d in daft.coords and "spacing" in daft.coords[d].attrs:
             out.coords[ce.freq_dim_name(d, prefix)].attrs["spacing"] = \
@@ -150,12 +158,17 @@ def _hp_scale(da, dim, updated, coords, scaling, window_correction,
     raise ValueError(f"Unknown {scaling} scaling flag")
 
 
-def _one_sided(x, daft, da, real_dim, updated):
-    """x times the one-sided doubling along the real freq axis."""
+def _one_sided(x, daft, da, real_dim, updated, kwargs):
+    """x times the one-sided doubling along the real freq axis; the Nyquist
+    parity is the segment length's under ``chunks_to_segments``
+    (``xrft_tpu/highprec.py:636-645``)."""
     fr = next(d for d in updated if d.endswith(real_dim))
     shape = [1] * x.ndim
     shape[daft.get_axis_num(fr)] = -1
-    f = torch.as_tensor(_doubling_vector(da.sizes[real_dim]),
+    n = da.sizes[real_dim]
+    if kwargs.get("chunks_to_segments"):
+        n = (da.attrs.get("_chunks") or {}).get(real_dim, n)
+    f = torch.as_tensor(_doubling_vector(n),
                         dtype=torch.float64, device=x.device)
     return x * f.reshape(shape)
 
@@ -171,11 +184,12 @@ def power_spectrum_hp(da: LabeledArray, dim=None,
     kwargs["true_phase"] = False
     daft = fft_hp(da, dim=dim, real_dim=real_dim, **kwargs)
     dim = _norm_dim(da, dim)
-    updated = [d for d in daft.dims if d not in da.dims]
+    updated = [d for d in daft.dims
+               if d not in da.dims and "segment" not in d]
 
     ps = daft.data.real ** 2 + daft.data.imag ** 2
     if real_dim is not None:
-        ps = _one_sided(ps, daft, da, real_dim, updated)
+        ps = _one_sided(ps, daft, da, real_dim, updated, kwargs)
     scale = _hp_scale(da, dim, updated, daft.coords, scaling,
                       window_correction, kwargs.get("window"))
     if scale != 1.0:
@@ -199,11 +213,12 @@ def cross_spectrum_hp(da1: LabeledArray, da2: LabeledArray, dim=None,
     daft1 = fft_hp(da1, dim=dim, real_dim=real_dim, **kwargs)
     daft2 = fft_hp(da2, dim=dim, real_dim=real_dim, **kwargs)
     dim = _norm_dim(da1, dim)
-    updated = [d for d in daft1.dims if d not in da1.dims]
+    updated = [d for d in daft1.dims
+               if d not in da1.dims and "segment" not in d]
 
     cs = daft1.data * daft2.data.conj()
     if real_dim is not None:
-        cs = _one_sided(cs, daft1, da1, real_dim, updated)
+        cs = _one_sided(cs, daft1, da1, real_dim, updated, kwargs)
     scale = _hp_scale(da1, dim, updated, daft1.coords, scaling,
                       window_correction, kwargs.get("window"), strict=False)
     if scale != 1.0:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .labeled import Coord, LabeledArray
+from .labeled import Coord, LabeledArray, resolve_device
 
 __all__ = ["from_reference", "to_numpy"]
 
@@ -19,8 +19,9 @@ def from_reference(la, device=None) -> LabeledArray:
     """An ``xrft_tpu.LabeledArray`` (or any object with ``.values``,
     ``.dims``, ``.coords`` of objects with ``.dims``/``.values``/``.attrs``,
     ``.attrs`` and ``.name``) as this package's LabeledArray, with its data
-    on ``device`` (default: the CPU)."""
-    data = torch.as_tensor(np.array(la.values), device=device)
+    on ``device`` (default: the CUDA device, see
+    :func:`~xrft_tpu_torch.labeled.resolve_device`)."""
+    data = torch.as_tensor(np.array(la.values), device=resolve_device(device))
     coords = {name: Coord(c.dims, np.array(c.values), dict(c.attrs), name)
               for name, c in la.coords.items()}
     return LabeledArray(data, dims=tuple(la.dims), coords=coords,

@@ -14,7 +14,20 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Coord", "LabeledArray"]
+__all__ = ["Coord", "LabeledArray", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA device, and raises
+    when there is none: the package never moves to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "xrft_tpu_torch runs on the CUDA device by default and none is "
+            "available; pass device='cpu' (or a CPU tensor) to run on the "
+            "CPU")
+    return torch.device("cuda")
 
 
 class Coord:
@@ -77,15 +90,22 @@ class LabeledArray:
     """An N-D torch tensor with named dims, host-side coords, and attrs.
 
     Arithmetic broadcasts by dim name, as xarray does.  A numpy array (or
-    anything ``np.asarray`` takes) passed as ``data`` becomes a CPU tensor;
-    a tensor stays on its device.
+    anything ``np.asarray`` takes) passed as ``data`` becomes a tensor on
+    ``device``, by default the CUDA device (see :func:`resolve_device`); a
+    tensor stays on its device unless ``device`` names another.  Declared
+    chunk lengths (:meth:`chunk`) live in ``attrs["_chunks"]`` and survive
+    arithmetic, as dask chunks do.
     """
 
     __slots__ = ("data", "dims", "coords", "attrs", "name")
 
-    def __init__(self, data, dims=None, coords=None, attrs=None, name=None):
+    def __init__(self, data, dims=None, coords=None, attrs=None, name=None,
+                 device=None):
         if not isinstance(data, torch.Tensor):
-            data = torch.as_tensor(np.asarray(data))
+            data = torch.as_tensor(np.asarray(data),
+                                   device=resolve_device(device))
+        elif device is not None:
+            data = data.to(device)
         if dims is None:
             dims = tuple(f"dim_{i}" for i in range(data.ndim))
         elif isinstance(dims, str):
@@ -197,6 +217,63 @@ class LabeledArray:
             out = nxt
         return out
 
+    def isel(self, indexers=None, **indexers_kwargs) -> "LabeledArray":
+        """Select by position along dims (ints drop the dim, slices and
+        index arrays keep it), as ``xrft_tpu``'s ``isel``: a view for
+        ints and slices, an ``index_select`` copy for index arrays."""
+        indexers = dict(indexers or {})
+        indexers.update(indexers_kwargs)
+        data = self.data
+        dropped = []
+        for ax in reversed(range(len(self.dims))):
+            d = self.dims[ax]
+            ix = indexers.get(d, slice(None))
+            if isinstance(ix, (int, np.integer)):
+                data = data.select(ax, int(ix))
+                dropped.append(d)
+            elif isinstance(ix, slice):
+                data = data[(slice(None),) * ax + (ix,)]
+            else:
+                data = data.index_select(ax, torch.as_tensor(
+                    np.asarray(ix), dtype=torch.long, device=data.device))
+        out = LabeledArray.__new__(LabeledArray)
+        out.data = data
+        out.dims = tuple(d for d in self.dims if d not in dropped)
+        out.attrs = dict(self.attrs)
+        out.name = self.name
+        out.coords = {}
+        for cname, c in self.coords.items():
+            if any(d in dropped for d in c.dims):
+                continue
+            if any(d in indexers for d in c.dims):
+                ckey = tuple(indexers.get(d, slice(None)) for d in c.dims)
+                out.coords[cname] = Coord(c.dims, c.values[ckey], c.attrs,
+                                          cname)
+            else:
+                out.coords[cname] = c.copy()
+        return out
+
+    def assign_attrs(self, **attrs) -> "LabeledArray":
+        out = self.copy()
+        out.attrs.update(attrs)
+        return out
+
+    def chunk(self, chunks=None, **chunks_kwargs) -> "LabeledArray":
+        """Declare chunk lengths per dim (metadata only), which
+        ``chunks_to_segments=True`` cuts into segments
+        (``xrft_tpu/labeled.py:533-551``)."""
+        merged = dict(self.attrs.get("_chunks") or {})
+        merged.update(chunks or {})
+        merged.update(chunks_kwargs)
+        for d in merged:
+            if d not in self.dims:
+                raise ValueError(f"chunk dim {d!r} not in {self.dims}")
+        return self.assign_attrs(_chunks=merged)
+
+    @property
+    def chunks(self):
+        return self.attrs.get("_chunks")
+
     def assign_coords(self, coords=None, **kwargs) -> "LabeledArray":
         coords = dict(coords or {})
         coords.update(kwargs)
@@ -251,8 +328,13 @@ class LabeledArray:
             out = LabeledArray.__new__(LabeledArray)
             out.data = op(b, a) if reflexive else op(a, b)
             out.dims = tuple(out_dims)
-            # user attrs and the name drop (xarray keep_attrs=False parity)
-            out.attrs = {}
+            # user attrs and the name drop (xarray keep_attrs=False parity),
+            # but declared chunk lengths are structural, like dask chunks
+            # (xrft_tpu/labeled.py:650-658)
+            chunks = dict(other.attrs.get("_chunks") or {})
+            chunks.update(self.attrs.get("_chunks") or {})
+            chunks = {d: c for d, c in chunks.items() if d in out_dims}
+            out.attrs = {"_chunks": chunks} if chunks else {}
             out.name = None
             coords = {k: c.copy() for k, c in self.coords.items()}
             for k, c in other.coords.items():
@@ -266,7 +348,8 @@ class LabeledArray:
                 f"unsupported operand type {type(other).__name__}")
         data = op(other, self.data) if reflexive else op(self.data, other)
         out = self.copy(data=data)
-        out.attrs = {}
+        chunks = self.attrs.get("_chunks")
+        out.attrs = {"_chunks": dict(chunks)} if chunks else {}
         return out
 
     def __add__(self, o):

@@ -21,6 +21,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..config import full_fp32
+
 __all__ = ["BinPlan", "binned_mean_np", "binned_sum", "binned_sum_plain",
            "cut_codes"]
 
@@ -171,11 +173,10 @@ def _plain_real(x: torch.Tensor, plan: BinPlan) -> torch.Tensor:
     non-TPU route (``xrft_tpu/ops/binning.py:170-202``)."""
     nbins, dev = plan.nbins, x.device
     if plan.size * nbins <= ONEHOT_MAX_ELEMENTS:
-        if x.is_cuda:
-            torch.backends.cuda.matmul.allow_tf32 = False
         rdtype = np.float64 if x.dtype == torch.float64 else np.float32
-        return x @ torch.as_tensor(_onehot(plan.codes, nbins, rdtype),
-                                   device=dev)
+        with full_fp32():
+            return x @ torch.as_tensor(_onehot(plan.codes, nbins, rdtype),
+                                       device=dev)
     t = plan.on(dev)
     # pairwise-accuracy prefix: blocked two-level cumsum.  The JAX package
     # runs it in float32 for every dtype; here float64 data stay float64

@@ -14,6 +14,10 @@ scaling rule downstream is implementation-independent:
                    its base case (:mod:`.dft64`).  The inverse is the sign +1
                    transform scaled by 1/n.  A dtype or length a kernel
                    cannot run raises; nothing is handed to torch.fft quietly.
+  * ``"matmul"`` - the stacked matmul engine (:mod:`.stacked_fft`), with the
+                   shifts absorbed into its weights and the real-input
+                   level-0 product on K5a (:mod:`.dot`).  A length it cannot
+                   plan, and ``irfftn``, raise NotImplementedError.
 
 ``pre_shift_axes`` ifftshift the input and ``post_shift_axes`` shift the
 output (``post_kind`` "fftshift" or, for the inverses, "ifftshift"), as in
@@ -29,6 +33,7 @@ import torch
 from ..config import FFT_IMPLS, config
 from .dft64 import fftn64
 from .fft_fourstep import fft_last
+from .stacked_fft import fft_nd_stacked
 
 __all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fftshift", "ifftshift"]
 
@@ -74,6 +79,9 @@ def _post(out, post_shift_axes, post_kind):
 def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     """Complex N-D FFT over ``axes``."""
     axes = _norm(axes, x.ndim)
+    if _impl() == "matmul":
+        return fft_nd_stacked(x, axes, "fft", pre_shift_axes,
+                              post_shift_axes)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
@@ -87,6 +95,9 @@ def ifftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
           post_kind="fftshift"):
     """Complex N-D inverse FFT over ``axes``, scaled by 1/prod(n)."""
     axes = _norm(axes, x.ndim)
+    if _impl() == "matmul":
+        return fft_nd_stacked(x, axes, "ifft", pre_shift_axes,
+                              post_shift_axes, post_kind)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
@@ -100,6 +111,9 @@ def rfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     """Real N-D FFT; the half-spectrum axis is ``axes[-1]``, which keeps
     ``n//2 + 1`` columns."""
     axes = _norm(axes, x.ndim)
+    if _impl() == "matmul":
+        return fft_nd_stacked(x, axes, "rfft", pre_shift_axes,
+                              post_shift_axes)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
@@ -119,8 +133,13 @@ def irfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
     The kernel route inverts the other axes first, extends the last one to
     length n by Hermitian symmetry (``X[n - k] = conj(X[k])``), runs the
     sign +1 transform and keeps the real part, which drops any imaginary
-    part at DC and Nyquist as numpy does."""
+    part at DC and Nyquist as numpy does.  The matmul engine has no irfft
+    (the JAX package runs it on its pair engine): ``"matmul"`` raises."""
     axes = _norm(axes, x.ndim)
+    if _impl() == "matmul":
+        raise NotImplementedError(
+            "irfftn under fft_impl='matmul' is not ported (the JAX package "
+            "runs it on its pair engine; ROADMAP.md, Queue 1)")
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":

@@ -18,6 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..config import full_fp32
+
 __all__ = ["fft_last", "fft_last_plain", "check_supported"]
 
 MIN_N = 256
@@ -82,8 +84,9 @@ def fft_last_plain(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     w2 = t2[torch.as_tensor(np.outer(j2, j2) % n2, device=dev)]   # (j2, k2)
     tw = tn[torch.as_tensor(np.outer(j2, j1) % n, device=dev)]    # (j2, k1)
     xr = x.reshape(-1, n1, n2).to(torch.complex64)               # (r, j1, j2)
-    b = torch.einsum("rab,ak->rbk", xr, w1) * tw                 # (r, j2, k1)
-    d = torch.einsum("rbk,bm->rkm", b, w2)                       # (r, k1, k2)
+    with full_fp32():
+        b = torch.einsum("rab,ak->rbk", xr, w1) * tw             # (r, j2, k1)
+        d = torch.einsum("rbk,bm->rkm", b, w2)                   # (r, k1, k2)
     # frequency k = k1 + n1*k2 is the row-major flattening of (k2, k1)
     return d.transpose(1, 2).reshape(x.shape)
 

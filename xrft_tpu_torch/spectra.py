@@ -23,10 +23,10 @@ from . import coords as ce
 from .config import MIRROR_IMPLS, config
 from .labeled import Coord, LabeledArray
 from .ops import mirror
-from .transform import (_dim_coord, _not_ported, _real_flag_warning,
-                        _reject_segments, fft)
+from .transform import _dim_coord, _real_flag_warning, _stack_segments, fft
 
-__all__ = ["power_spectrum", "cross_spectrum", "cross_phase", "coherence"]
+__all__ = ["power_spectrum", "cross_spectrum", "cross_phase", "coherence",
+           "spectrogram", "welch", "csd", "periodogram"]
 
 
 def _abs2(x: torch.Tensor) -> torch.Tensor:
@@ -75,11 +75,35 @@ def _doubling_vector(n):
 
 def _psd_real_dim_scaling(da, ps, real_dim, updated_dims):
     """One-sided spectrum doubling on the real freq axis, as a broadcast
-    LabeledArray in the PSD's dtype on its device."""
+    LabeledArray in the PSD's dtype on its device.  Under
+    ``chunks_to_segments`` ``da`` arrives stacked, so the Nyquist parity is
+    the segment length's (the JAX package's deliberate divergence from
+    xrft, ``xrft_tpu/spectra.py:69-82``)."""
     real = next(d for d in updated_dims if d.endswith(real_dim))
     f = torch.as_tensor(_doubling_vector(da.sizes[real_dim]),
                         dtype=ps.dtype, device=ps.device)
     return LabeledArray(f, dims=(real,), coords={real: ps.coords[real]})
+
+
+def _maybe_stack_segments(das, dim, kwargs):
+    """Cut ``chunks_to_segments`` once up front, so that downstream the
+    segment dims are batch dims and every size-derived factor (density df,
+    one-sided doubling, window correction) is per segment
+    (``xrft_tpu/spectra.py:85-106``).  Returns (the stacked arrays, the
+    dim list pinned before the segment dims exist, kwargs without the
+    segment keywords)."""
+    if not kwargs.get("chunks_to_segments"):
+        if kwargs.get("segment_overlap") is not None:
+            raise ValueError(
+                "segment_overlap requires chunks_to_segments=True"
+            )
+        return das, dim, kwargs
+    dim = _norm_dim_list(das[0], dim)
+    overlap = kwargs.get("segment_overlap")
+    das = tuple(_stack_segments(da, dim, overlap=overlap) for da in das)
+    kwargs = {k: v for k, v in kwargs.items()
+              if k not in ("chunks_to_segments", "segment_overlap")}
+    return das, dim, kwargs
 
 
 def _pop_density(kwargs, fname, scaling):
@@ -315,11 +339,10 @@ def power_spectrum(
                                  window_correction=window_correction,
                                  **kwargs)
 
-    _reject_segments(kwargs.get("chunks_to_segments"),
-                     kwargs.get("segment_overlap"))
-
     # true_phase does not matter for |F|^2; forced off to skip phase work
     kwargs.update({"true_amplitude": True, "true_phase": False})
+
+    (da,), dim, kwargs = _maybe_stack_segments((da,), dim, kwargs)
 
     half = _half_spectrum_dim(da, dim, real_dim)
     if half is not None:
@@ -328,7 +351,8 @@ def power_spectrum(
         return _power_spectrum_via_rfft(da, dim, half, kwargs, prescale)
 
     daft = fft(da, dim=dim, real_dim=real_dim, **kwargs)
-    updated_dims = [d for d in daft.dims if d not in da.dims]
+    updated_dims = [d for d in daft.dims
+                    if d not in da.dims and "segment" not in d]
     ps = daft.copy(data=_abs2(daft.data))
     ps.attrs = {}
 
@@ -380,8 +404,7 @@ def cross_spectrum(
     if tuple(da1.dims) != tuple(da2.dims):
         raise ValueError("The two datasets have different dimensions")
 
-    _reject_segments(kwargs.get("chunks_to_segments"),
-                     kwargs.get("segment_overlap"))
+    (da1, da2), dim, kwargs = _maybe_stack_segments((da1, da2), dim, kwargs)
 
     half = _half_spectrum_dim(da1, dim, real_dim)
     if half is not None and _half_spectrum_dim(da2, dim, real_dim) == half:
@@ -395,7 +418,8 @@ def cross_spectrum(
     daft2 = fft(da2, dim=dim, real_dim=real_dim, true_phase=true_phase,
                 **kwargs)
 
-    updated_dims = [d for d in daft1.dims if d not in da1.dims]
+    updated_dims = [d for d in daft1.dims
+                    if d not in da1.dims and "segment" not in d]
     cs = daft1 * daft2.conj()
 
     if real_dim is not None:
@@ -420,6 +444,254 @@ def cross_phase(da1, da2, dim=None, true_phase=True, **kwargs) -> LabeledArray:
     return cp
 
 
-def coherence(*args, **kwargs):
-    """Not ported yet (``xrft_tpu.coherence``): it averages over segments."""
-    raise _not_ported("coherence", "segments and short-time")
+def coherence(da1, da2, dim=None, real_dim=None, window="hann",
+              true_phase=False, **kwargs) -> LabeledArray:
+    """Magnitude-squared coherence ``|<Pxy>|^2 / (<Pxx><Pyy>)``, the
+    Welch-averaged scipy.signal.coherence estimate (``xrft_tpu.coherence``):
+    the three estimates share the window and segment settings and are
+    averaged over every ``<dim>_segment`` axis before the ratio.  Without
+    segments the estimate is identically 1, with a warning."""
+    est = dict(dim=dim, real_dim=real_dim, window=window, **kwargs)
+    pxx = power_spectrum(da1, **est)
+    pyy = power_spectrum(da2, **est)
+    pxy = cross_spectrum(da1, da2, true_phase=true_phase, **est)
+    return _coherence_from_estimates(pxx, pyy, pxy, da1.name, da2.name)
+
+
+def spectrogram(da, dim=None, seglen=None, segment_overlap=None,
+                window="hann", detrend="constant", scaling="density",
+                window_correction=True, real_dim="auto",
+                **kwargs) -> LabeledArray:
+    """Short-time power spectral density over sliding segments, the
+    scipy.signal.spectrogram estimate (``xrft_tpu.spectrogram``): a
+    per-segment one-sided PSD along ``dim`` (two-sided for complex data)
+    whose ``<dim>_segment`` coordinate holds the segment centres
+    ``x0 + (k*hop + seglen/2) * dx`` in the coordinate's own type.
+    ``seglen`` is nperseg (default: a declared chunk length),
+    ``segment_overlap`` noverlap (samples or a fraction; None is
+    ``seglen // 8``); trailing samples that fill no segment are dropped
+    with a warning."""
+    da, dim, seglen, ov = _stft_plan(da, dim, seglen, segment_overlap, 8,
+                                     "spectrogram")
+    if real_dim == "auto":
+        real_dim = dim if _is_real_input(da) else None
+    hop = seglen - ov
+
+    coord = _dim_coord(da, dim)
+    ce.get_coordinate_spacing(coord, kwargs.get("spacing_tol", 1e-3))
+    # signed spacing of the stored coordinate: segments follow storage order
+    dx = float(ce.diff_coord(coord)[0])
+
+    ps = power_spectrum(
+        da, dim=[dim], real_dim=real_dim, scaling=scaling,
+        window_correction=window_correction, window=window,
+        detrend=detrend, chunks_to_segments=True,
+        segment_overlap={dim: ov} if ov else None, **kwargs)
+
+    segdim = dim + "_segment"
+    nseg = ps.sizes[segdim]
+    centers = _segment_centers(coord, nseg, hop, seglen, dx)
+    out = ps.assign_coords(
+        {segdim: Coord(segdim, centers, attrs={"spacing": hop * dx},
+                       name=segdim)})
+    out.name = f"{da.name}_spectrogram" if da.name else None
+    return out
+
+
+def _segment_centers(coord, nseg, hop, seglen, dx):
+    """Segment-centre values in the coordinate's own type: floats for
+    numeric coordinates, datetime64 or cftime for time-like ones (``dx`` is
+    in seconds for those) (``xrft_tpu/spectra.py:761-779``)."""
+    vals = np.asarray(coord.values)
+    offsets = (np.arange(nseg) * hop + seglen / 2.0) * dx
+    if np.issubdtype(vals.dtype, np.datetime64):
+        t0 = vals.ravel()[0].astype("datetime64[ns]")
+        return t0 + np.round(offsets * 1e9).astype("timedelta64[ns]")
+    if ce._is_cftime(vals):
+        import datetime
+
+        t0 = vals.flat[0]
+        return np.array(
+            [t0 + datetime.timedelta(seconds=float(o)) for o in offsets],
+            dtype=object)
+    return float(vals.ravel()[0]) + offsets
+
+
+def _is_real_input(da) -> bool:
+    """scipy's real-input test: any non-complex dtype, float or integer."""
+    return not da.dtype.is_complex and da.dtype != torch.bool
+
+
+def _norm_1d_dim(da, dim, caller) -> str:
+    """The single sliding-segment dim (None: the last dim)."""
+    if dim is None:
+        return da.dims[-1]
+    if isinstance(dim, str):
+        return dim
+    dim = list(dim)
+    if len(dim) != 1:
+        raise ValueError(
+            f"{caller} is a 1-D sliding-segment estimate; got "
+            f"dim={dim!r} (transform other dims with power_spectrum)"
+        )
+    return dim[0]
+
+
+def _stft_plan(da, dim, seglen, segment_overlap, default_div, caller):
+    """The sliding-segment prologue of spectrogram, welch, csd and stft
+    (``xrft_tpu/spectra.py:804-854``): the dim, the segment length
+    (``seglen`` or a declared chunk, clamped to the input length with a
+    warning), the overlap (None: ``seglen // default_div``) and, at zero
+    overlap, the scipy tail drop.  Returns (da, dim, seglen, overlap)."""
+    dim = _norm_1d_dim(da, dim, caller)
+
+    if seglen is not None:
+        da = da.chunk({dim: int(seglen)})
+    chunks = da.chunks or {}
+    if dim not in chunks:
+        raise ValueError(
+            f"{caller} needs a segment length: pass seglen= or declare "
+            "one with da.chunk({dim: seglen}) first"
+        )
+    seglen = int(chunks[dim])
+    if seglen > da.sizes[dim]:
+        warnings.warn(
+            f"seglen = {seglen} is greater than input length = "
+            f"{da.sizes[dim]}, using seglen = {da.sizes[dim]}"
+        )
+        seglen = da.sizes[dim]
+        da = da.chunk({dim: seglen})
+
+    ov = segment_overlap
+    if ov is None:
+        ov = seglen // default_div
+    if isinstance(ov, float):
+        if not 0.0 <= ov < 1.0:
+            raise ValueError(
+                f"fractional segment_overlap must be in [0, 1), got {ov}"
+            )
+        ov = int(round(ov * seglen))
+
+    n = da.sizes[dim]
+    if ov == 0 and n % seglen:
+        keep = (n // seglen) * seglen
+        warnings.warn(
+            f"{caller} drops the last {n - keep} samples of dim "
+            f"{dim!r} (scipy convention)"
+        )
+        da = da.isel({dim: slice(0, keep)}).chunk({dim: seglen})
+    return da, dim, seglen, ov
+
+
+def welch(da, dim=None, seglen=None, segment_overlap=None, window="hann",
+          detrend="constant", scaling="density", window_correction=True,
+          real_dim="auto", **kwargs) -> LabeledArray:
+    """Welch PSD estimate, the scipy.signal.welch convenience
+    (``xrft_tpu.welch``): ``power_spectrum(..., chunks_to_segments=True)``
+    averaged over ``<dim>_segment``.  scipy's defaults: ``seglen // 2``
+    overlap, hann, constant detrend, window correction, one-sided for real
+    input; a partial last segment is dropped and a too-long ``seglen``
+    clamped, each with a warning.  Composes with ``engine="hp"`` and extra
+    batch dims."""
+    da, dim, seglen, ov = _stft_plan(da, dim, seglen, segment_overlap, 2,
+                                     "welch")
+    if real_dim == "auto":
+        real_dim = dim if _is_real_input(da) else None
+    ps = power_spectrum(
+        da, dim=[dim], real_dim=real_dim, scaling=scaling,
+        window_correction=window_correction, window=window,
+        detrend=detrend, chunks_to_segments=True,
+        segment_overlap={dim: ov} if ov else None, **kwargs)
+    # a plain mean; on the hp path a float64 one, which needs none of the
+    # JAX package's double-word compensation (xrft_tpu/spectra.py:857-885)
+    out = ps.mean(dim + "_segment")
+    out.name = f"{da.name}_welch" if da.name else None
+    return out
+
+
+def _zero_pad_to(da, dim, target) -> LabeledArray:
+    """``da`` zero-padded along ``dim`` to ``target`` samples, the
+    coordinate extrapolated (scipy.signal.csd pads the shorter input)."""
+    from .padding import pad as _pad
+
+    out = _pad(da, {dim: (0, target - da.sizes[dim])}, mode="constant")
+    # the pad is part of the estimate, not a step unpad should undo
+    out.coords[dim].attrs.pop("pad_width", None)
+    return out
+
+
+def csd(da1, da2, dim=None, seglen=None, segment_overlap=None,
+        window="hann", detrend="constant", scaling="density",
+        window_correction=True, real_dim="auto", true_phase=False,
+        **kwargs) -> LabeledArray:
+    """Cross power spectral density, the scipy.signal.csd convenience
+    (``xrft_tpu.csd``): the Welch-averaged cross spectrum with scipy's
+    defaults, one-sided iff both inputs are real, the shorter input
+    zero-padded to the longer.  It follows scipy's conjugation,
+    ``conj(F(x)) F(y)``, so it is the conjugate of the averaged
+    :func:`cross_spectrum`."""
+    if tuple(da1.dims) != tuple(da2.dims):
+        raise ValueError("da1 and da2 must have the same dimensions!")
+    dim = _norm_1d_dim(da1, dim, "csd")
+    n1, n2 = da1.sizes[dim], da2.sizes[dim]
+    if n1 < n2:
+        da1 = _zero_pad_to(da1, dim, n2)
+    elif n2 < n1:
+        da2 = _zero_pad_to(da2, dim, n1)
+    da1, dim, seglen, ov = _stft_plan(da1, dim, seglen, segment_overlap, 2,
+                                      "csd")
+    if da2.sizes[dim] != da1.sizes[dim]:  # da1's zero-overlap tail drop
+        da2 = da2.isel({dim: slice(0, da1.sizes[dim])})
+    da2 = da2.chunk({dim: seglen})
+    if real_dim == "auto":
+        real_dim = dim if (_is_real_input(da1)
+                           and _is_real_input(da2)) else None
+    cs = cross_spectrum(
+        da1, da2, dim=[dim], real_dim=real_dim, scaling=scaling,
+        window_correction=window_correction, window=window,
+        detrend=detrend, chunks_to_segments=True, true_phase=true_phase,
+        segment_overlap={dim: ov} if ov else None, **kwargs)
+    out = cs.mean(dim + "_segment")
+    out = out.copy(data=out.data.conj())
+    out.name = (f"{da1.name}_{da2.name}_csd"
+                if da1.name and da2.name else None)
+    return out
+
+
+def periodogram(da, dim=None, window=None, detrend="constant",
+                scaling="density", window_correction=True,
+                real_dim="auto", **kwargs) -> LabeledArray:
+    """Single-segment PSD, the scipy.signal.periodogram convenience
+    (``xrft_tpu.periodogram``): no window, constant detrend (False or None
+    disables it), density, one-sided for real input; the window correction
+    applies only when a window is asked for."""
+    dim = _norm_1d_dim(da, dim, "periodogram")
+    if real_dim == "auto":
+        real_dim = dim if _is_real_input(da) else None
+    if detrend is False:
+        detrend = None
+    ps = power_spectrum(
+        da, dim=[dim], real_dim=real_dim, scaling=scaling,
+        window=window, detrend=detrend,
+        window_correction=window_correction and window is not None,
+        **kwargs)
+    ps.name = f"{da.name}_periodogram" if da.name else None
+    return ps
+
+
+def _coherence_from_estimates(pxx, pyy, pxy, name1=None,
+                              name2=None) -> LabeledArray:
+    """Average the three Welch estimates over their segment dims, then the
+    magnitude-squared ratio (``xrft_tpu/spectra.py:1026-1050``)."""
+    segdims = [d for d in pxy.dims if d.endswith("_segment")]
+    if not segdims:
+        warnings.warn(
+            "coherence without segment averaging is identically 1; pass "
+            "chunks_to_segments=True (and optionally segment_overlap=...) "
+            "to average over Welch segments"
+        )
+    for d in segdims:
+        pxy, pxx, pyy = pxy.mean(d), pxx.mean(d), pyy.mean(d)
+    coh = pxx.copy(data=_abs2(pxy.data) / (pxx.data * pyy.data))
+    coh.name = f"{name1}_{name2}_coherence" if name1 and name2 else None
+    return coh

@@ -35,12 +35,6 @@ def _not_ported(what: str, slice_: str):
     )
 
 
-def _reject_segments(chunks_to_segments, segment_overlap=None):
-    if chunks_to_segments or segment_overlap is not None:
-        raise _not_ported("chunks_to_segments/segment_overlap",
-                          "segments and short-time")
-
-
 def _check_engine(engine):
     """Every ``engine`` but None and "hp" belongs to the sharded slice."""
     if engine is not None:
@@ -65,6 +59,106 @@ def _norm_dim(da, dim):
     if isinstance(dim, str):
         return [dim]
     return list(dim)
+
+
+def _stack_segments(da: LabeledArray, dim, suffix="_segment",
+                    overlap=None, plan=None) -> LabeledArray:
+    """Cut each transform dim into (<dim>_segment, <dim>) by the array's
+    declared chunk lengths, Welch segmenting (``xrft_tpu/transform.py:111-
+    134``).  ``overlap`` per dim, in samples (int) or as a fraction of the
+    segment length (float in [0, 1)), follows scipy.signal.welch's
+    ``noverlap``: trailing samples that fill no segment are dropped.
+    ``plan`` takes a precomputed :func:`_segment_plan`.  Without overlap
+    the segments are a reshape; with it, one strided view per dim and one
+    copy."""
+    newdims, newshape, newcoords, plans = plan if plan is not None \
+        else _segment_plan(da, dim, suffix, overlap)
+    if all(hop == seglen for _, _, seglen, hop, _ in plans):
+        data = da.data.reshape(newshape)
+    else:
+        data = da.data
+        for ax, nseg, seglen, hop, _n in sorted(plans, reverse=True):
+            data = _slice_stack_axis(data, ax, nseg, seglen, hop)
+        data = data.contiguous()
+    return LabeledArray(data, dims=newdims, coords=newcoords, attrs=da.attrs)
+
+
+def _slice_stack_axis(data: torch.Tensor, ax, nseg, seglen, hop):
+    """(..., n, ...) -> (..., nseg, seglen, ...) windows at ``hop`` along
+    axis ``ax``, as a strided view (``xrft_tpu/transform.py:137-149``)."""
+    out = data.unfold(ax, seglen, hop).movedim(-1, ax + 1)
+    if out.shape[ax] != nseg:
+        raise ValueError(f"{out.shape[ax]} segments along axis {ax}, "
+                         f"planned {nseg}")
+    return out
+
+
+def _segment_plan(da: LabeledArray, dim, suffix="_segment", overlap=None):
+    """(newdims, newshape, newcoords, plans) for :func:`_stack_segments`;
+    ``plans`` lists (axis, nseg, seglen, hop, n) per transform dim
+    (``xrft_tpu/transform.py:152-221``)."""
+    chunks = da.attrs.get("_chunks")
+    if chunks is None:
+        raise ValueError(
+            "chunks_to_segments=True requires declared chunks: call "
+            "da.chunk({dim: seglen}) first."
+        )
+    ov = dict(overlap) if isinstance(overlap, dict) else \
+        ({d: overlap for d in dim} if overlap else {})
+    bad = set(ov) - set(dim)
+    if bad:
+        raise ValueError(
+            f"segment_overlap given for non-transform dims {sorted(bad)}"
+        )
+    newdims, newshape, newcoords, plans = [], [], {}, []
+    for ax, d in enumerate(da.dims):
+        n = da.sizes[d]
+        if d in dim:
+            # an undeclared transform dim is one full-length segment, as an
+            # unchunked dask dim is one chunk
+            chunklen = chunks.get(d, n)
+            o = ov.get(d, 0) or 0
+            if isinstance(o, float):
+                if not 0.0 <= o < 1.0:
+                    raise ValueError(
+                        f"fractional segment_overlap for dim {d!r} must be "
+                        f"in [0, 1), got {o}"
+                    )
+                o = int(round(o * chunklen))
+            if not 0 <= o < chunklen:
+                raise ValueError(
+                    f"segment_overlap for dim {d!r} must be in "
+                    f"[0, seglen={chunklen}), got {o}"
+                )
+            hop = chunklen - o
+            if o == 0:
+                if n % chunklen != 0:
+                    raise ValueError("Chunk lengths need to be the same.")
+                nseg = n // chunklen
+            else:
+                if n < chunklen:
+                    raise ValueError(
+                        f"declared chunk length {chunklen} exceeds dim "
+                        f"{d!r} size {n}"
+                    )
+                nseg = (n - chunklen) // hop + 1
+                dropped = n - ((nseg - 1) * hop + chunklen)
+                if dropped:
+                    warnings.warn(
+                        f"segment_overlap drops the last {dropped} samples "
+                        f"of dim {d!r} (scipy.signal.welch convention)"
+                    )
+            newdims += [d + suffix, d]
+            newshape += [nseg, chunklen]
+            newcoords[d + suffix] = np.arange(nseg)
+            newcoords[d] = _dim_coord(da, d).values[:chunklen]
+            plans.append((ax, nseg, chunklen, hop, n))
+        else:
+            newdims.append(d)
+            newshape.append(n)
+            if d in da.coords:
+                newcoords[d] = da.coords[d].values
+    return newdims, newshape, newcoords, plans
 
 
 def _check_bad_transform_coords(da: LabeledArray, dim):
@@ -112,13 +206,19 @@ def fft(
       ``exp(-2i*pi*f*lag)``; each frequency coordinate records its
       ``direct_lag`` attr.
     - ``true_amplitude=True`` multiplies by the product of grid spacings.
+    - ``chunks_to_segments=True`` cuts declared chunks into
+      ``<dim>_segment`` dims (Welch segmenting); ``segment_overlap`` (int
+      samples, float fraction of the segment length, or a per-dim dict)
+      makes them overlap, as scipy.signal.welch's ``noverlap``.
     - ``engine="hp"`` runs every stage in float64/complex128
       (:func:`~xrft_tpu_torch.highprec.fft_hp`).
 
-    ``chunks_to_segments``, ``segment_overlap`` and any other ``engine`` are
-    not ported yet and raise NotImplementedError.
+    Any other ``engine`` is not ported yet and raises NotImplementedError.
     """
     dim = _norm_dim(da, dim)
+
+    if segment_overlap is not None and not chunks_to_segments:
+        raise ValueError("segment_overlap requires chunks_to_segments=True")
 
     if real is not None:
         real_dim = real
@@ -132,7 +232,6 @@ def fft(
                       chunks_to_segments=chunks_to_segments,
                       segment_overlap=segment_overlap)
     _check_engine(engine)
-    _reject_segments(chunks_to_segments, segment_overlap)
 
     if real_dim is not None:
         if real_dim not in da.dims:
@@ -144,7 +243,10 @@ def fft(
 
     ce.check_valid_fft_coords(da, dim)
 
-    rawdims = da.dims
+    if chunks_to_segments:
+        da = _stack_segments(da, dim, overlap=segment_overlap)
+
+    rawdims = da.dims  # segment dims included
 
     nonreal_shift = False
     if real_dim is not None:
@@ -285,9 +387,10 @@ def ifft(
     ``exp(+2i*pi*f*lag)``; frequency coordinates are sorted and must be
     centered on zero; output coordinates are the inverse grids plus the lag;
     ``true_amplitude`` divides by the product of output spacings.
-    ``real_dim`` takes an irfft along that dim.  ``engine="hp"`` runs in
-    complex128 (:func:`~xrft_tpu_torch.highprec.ifft_hp`).
-    ``chunks_to_segments`` and any other ``engine`` raise
+    ``real_dim`` takes an irfft along that dim.  ``chunks_to_segments``
+    cuts declared chunks into segments after the phase factor, as
+    ``xrft_tpu.ifft``.  ``engine="hp"`` runs in complex128
+    (:func:`~xrft_tpu_torch.highprec.ifft_hp`); any other ``engine`` raises
     NotImplementedError.
     """
     dim = _norm_dim(daft, dim)
@@ -302,7 +405,6 @@ def ifft(
         return ifft_hp(daft, spacing_tol, dim, real_dim, shift, true_phase,
                        true_amplitude, prefix, lag, chunks_to_segments)
     _check_engine(engine)
-    _reject_segments(chunks_to_segments)
 
     dim = _ifft_dims(daft, dim, real_dim)
     if lag is None:
@@ -311,7 +413,8 @@ def ifft(
     else:
         lag = _explicit_lags(daft, dim, lag, warn=not true_phase)
     return _ifft_resolved(daft, spacing_tol, dim, real_dim, shift,
-                          true_phase, true_amplitude, prefix, lag)
+                          true_phase, true_amplitude, prefix, lag,
+                          chunks_to_segments)
 
 
 def _ifft_dims(daft: LabeledArray, dim, real_dim) -> list:
@@ -329,7 +432,8 @@ def _ifft_dims(daft: LabeledArray, dim, real_dim) -> list:
 
 
 def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
-                   true_phase, true_amplitude, prefix, lag) -> LabeledArray:
+                   true_phase, true_amplitude, prefix, lag,
+                   chunks_to_segments=False) -> LabeledArray:
     """The body of :func:`ifft` once ``dim`` is ordered and ``lag`` holds one
     number per dim (``xrft_tpu/transform.py:480-615``)."""
     if true_phase:
@@ -344,6 +448,9 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
             pl = LabeledArray(phase, dims=(d,),
                               coords={d: c} if d in daft.coords else None)
             daft = daft * pl
+
+    if chunks_to_segments:
+        daft = _stack_segments(daft, dim)
 
     rawdims = daft.dims
 
