@@ -62,9 +62,11 @@ HP_FFT_N = 2048                # bench.py:517-529
 INV_SHAPE = (8, 4096, 2049)    # bench.py:337-383, the inverse flagship
 INV_KW = dict(dim=["freq_y", "freq_x"], real_dim="freq_x", shift=False,
               true_phase=False, true_amplitude=False, lag=None)
-# K4's shapes: (131072, 256) and the recursion at 4096 (8 x 4096 rows); the
-# hp path at 8 x 4096^2 runs (524288, 256) and (8388608, 16) on each axis
-K4_SHAPES = ((131072, 256), (524288, 256), (8388608, 16), (32768, 4096))
+# K4's shapes: (131072, 256), the direct prime stage at 251, and the
+# recursion at 4096 (8 x 4096 rows); the hp path at 8 x 4096^2 runs
+# (524288, 256) and (8388608, 16) on each axis
+K4_SHAPES = ((131072, 256), (4096, 251), (524288, 256), (8388608, 16),
+             (32768, 4096))
 K4_MAIN = {(524288, 256), (8388608, 16)}
 RUNS = 7                       # timed runs per measurement, after warm-up
 SOURCES = ("mirror", "fft_fourstep", "binned_sum", "dft64", "dot")
@@ -131,6 +133,24 @@ def wall_ms(fn, runs=RUNS, warmup=2):
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def event_ms(fn, runs=20, warmup=3):
+    """Median device time in ms of fn() between two CUDA events, the runs
+    back to back (the kernel alone, without the host's synchronize)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -457,9 +477,13 @@ def k4_phase(dft64, card):
                 result["library_ms"] += t_cufft
                 nbytes += 2 * rows * n * 16
                 flops += fft_flops(rows, n)
+            b_ms = bound(2 * rows * n * 16, fft_flops(rows, n), FP64_FLOP_S)[0]
             log(f"phase 9: K4 ({rows}, {n}): kernel {tk:.3f} ms "
-                f"({rows * n * n * 8 / tk / 1e9:.2f} TFLOP/s FP64), plain "
-                f"x @ W {tp:.3f} ms, cuFFT {t_cufft:.3f} ms [{card}]")
+                f"({2 * rows * n * 16 / tk / 1e6:.0f} GB/s, {b_ms / tk:.1%} "
+                f"of the bound {b_ms:.3f} ms), plain x @ W {tp:.3f} ms, "
+                f"cuFFT {t_cufft:.3f} ms; back to back between CUDA events "
+                f"kernel {event_ms(lambda: dft64.dft_last(x)):.3f} ms, cuFFT "
+                f"{event_ms(lambda: torch.fft.fft(x)):.3f} ms [{card}]")
         else:
             tk = wall_ms(lambda: dft64.fft_last(x))
             log(f"phase 9: K4 recursion ({rows}, {n}): {tk:.3f} ms, cuFFT "
@@ -977,17 +1001,23 @@ def main():
     # ---- phase 3: K2 against its plain version and cuFFT -----------------
     k2_err = 0.0
     main_k2 = {(32768, 4096, False), (16392, 4096, True)}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True   # a caller's setting
     for rows, n, cplx, sign in ((32768, 4096, False, -1),
                                 (16392, 4096, True, -1),
                                 (4096, 256, True, -1),
                                 (4096, 1000, False, -1),
-                                (4096, 1000, True, 1)):
+                                (4096, 1000, True, 1),
+                                (4096, 1004, True, 1),
+                                (64, 65536, False, -1)):
         x = field((rows, n), 2, torch.complex64 if cplx else torch.float32)
         got = fft_fourstep.fft_last(x, sign)
+        again = fft_fourstep.fft_last(x, sign)
         plain = fft_fourstep.fft_last_plain(x, sign)
         x64 = x.to(torch.complex128)
         ref = torch.fft.fft(x64) if sign == -1 else torch.fft.ifft(x64) * n
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K2 n={n}: two launches differ")
         e_plain, e_ref = rel_err(got, plain.to(torch.complex128)), \
             rel_err(got, ref)
         check(e_plain <= 1e-5 and e_ref <= 1e-5,
@@ -995,9 +1025,14 @@ def main():
         if (rows, n, cplx) in main_k2:
             k2_err = max(k2_err, (got - plain).abs().max().item())
         log(f"phase 3: K2 ({rows}, {n}) {'complex' if cplx else 'real'} "
-            f"sign {sign:+d}: rel err vs plain {e_plain:.3e}, vs "
-            f"complex128 cuFFT {e_ref:.3e} (limit 1e-5)")
-        del x, got, plain, x64, ref
+            f"sign {sign:+d}{' (two passes)' if n > 8192 else ''}: rel err "
+            f"vs plain {e_plain:.3e}, vs complex128 cuFFT {e_ref:.3e} (limit "
+            f"1e-5); two launches bit-identical")
+        del x, got, again, plain, x64, ref
+    check(torch.backends.cuda.matmul.allow_tf32 is True,
+          "the plain K2 changed the caller's TF32 setting")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("phase 3: the plain K2 left the caller's allow_tf32 = True as it was")
 
     # ---- phase 4: the main path ------------------------------------------
     da = labeled(xt, field(MAIN_SHAPE, 0))
@@ -1070,6 +1105,7 @@ def main():
     log(f"phase 5: main path {MAIN_SHAPE}: fft_impl='torch' "
         f"{t_main_torch:.3f} ms, fft_impl='kernel' "
         f"{t_main_kernel:.3f} ms [{card}]")
+    device_split(main_path("kernel"), "phase 5: main path, 'kernel'", card)
     with psd_mirror_impl("plain"):
         t_main_plain = wall_ms(main_path("torch"))
     log(f"phase 5: main path, fft_impl='torch' with psd_mirror_impl='plain' "
@@ -1095,11 +1131,17 @@ def main():
         k2_ms += tk
         k2_plain += tp
         k2_lib += t_cufft
-        k2_bytes += x.numel() * x.element_size() + rows * 4096 * 8
+        nbytes = x.numel() * x.element_size() + rows * 4096 * 8
+        k2_bytes += nbytes
         k2_flops += fft_flops(rows, 4096)
+        b_ms = bound(nbytes, fft_flops(rows, 4096))[0]
         log(f"phase 5: K2 ({rows}, 4096) {'complex' if cplx else 'real'}: "
-            f"kernel {tk:.3f} ms, plain {tp:.3f} ms, torch.fft.fft (cuFFT) "
-            f"{t_cufft:.3f} ms [{card}]")
+            f"kernel {tk:.3f} ms ({nbytes / tk / 1e6:.0f} GB/s, "
+            f"{b_ms / tk:.1%} of the bound {b_ms:.3f} ms), plain {tp:.3f} "
+            f"ms, torch.fft.fft (cuFFT) {t_cufft:.3f} ms; back to back "
+            f"between CUDA events kernel "
+            f"{event_ms(lambda: fft_fourstep.fft_last(x)):.3f} ms, cuFFT "
+            f"{event_ms(lambda: torch.fft.fft(x)):.3f} ms [{card}]")
         del x
 
     k3 = k3_phase(binning, card)

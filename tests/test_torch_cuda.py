@@ -52,21 +52,63 @@ def test_mirror_kernel_matches_plain(cuda, shape, nx, shift, dtype):
 
 @pytest.mark.parametrize("sign", [-1, 1])
 @pytest.mark.parametrize("cplx", [False, True])
-@pytest.mark.parametrize("n,rows", [(256, 8), (1000, 8), (4096, 64),
-                                    (65536, 2)])
+@pytest.mark.parametrize("n,rows", [(256, 8), (1000, 8), (1004, 8),
+                                    (4096, 64), (65536, 2)])
 def test_fourstep_kernel_matches_plain_and_cufft(cuda, n, rows, cplx, sign):
+    """K2 in one launch (n <= 8192; 1004 = 251 x 4 takes the direct prime
+    stage) and in two passes (65536), against its plain version and cuFFT
+    in complex128; two runs are bit for bit the same."""
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn((rows, n), generator=g, device=cuda,
                     dtype=torch.complex64 if cplx else torch.float32)
     before = fft_fourstep.fft_last.launches
     got = fft_fourstep.fft_last(x, sign)
-    assert fft_fourstep.fft_last.launches == before + 1
+    again = fft_fourstep.fft_last(x, sign)
+    assert fft_fourstep.fft_last.launches == before + 2
     plain = fft_fourstep.fft_last_plain(x, sign)
     x64 = x.to(torch.complex128)
     ref = torch.fft.fft(x64) if sign == -1 else torch.fft.ifft(x64) * n
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     assert _rel(got, plain) <= 2e-6
     assert _rel(got.to(torch.complex128), ref) <= 2e-6
+
+
+def test_fourstep_kernel_every_plan_shape(cuda):
+    """K2 on every length in [256, 1200) that its contract takes (every
+    register radix, direct stages of primes up to 251, staged and direct
+    loads) and on two-pass lengths with n1 != n2, real and complex, against
+    cuFFT in complex128 at 2e-6 of max, both signs."""
+    lengths = [n for n in range(256, 1200)
+               if fft_fourstep._balanced_factors(n) is not None]
+    lengths += [8192, 9000, 12288, 13000, 16384]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for n in lengths:
+        for dtype in (torch.complex64, torch.float32):
+            x = torch.randn((3, n), generator=g, device=cuda, dtype=dtype)
+            x64 = x.to(torch.complex128)
+            for sign in (-1, 1):
+                got = fft_fourstep.fft_last(x, sign)
+                ref = torch.fft.fft(x64) if sign == -1 \
+                    else torch.fft.ifft(x64) * n
+                assert _rel(got.to(torch.complex128), ref) <= 2e-6, \
+                    (n, dtype, sign)
+
+
+def test_fourstep_plain_keeps_the_callers_tf32_setting(cuda):
+    """The plain K2 runs its products at full float32 grade without
+    touching the process-wide TF32 flag."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x = torch.randn((8, 256), device=cuda)
+        got = fft_fourstep.fft_last_plain(x)
+        torch.cuda.synchronize()
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        ref = torch.fft.fft(x.to(torch.complex128))
+        assert _rel(got.to(torch.complex128), ref) <= 2e-6
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def test_kernels_reject_strided_input(cuda):
@@ -88,8 +130,8 @@ def test_kernels_reject_strided_input(cuda):
 
 @pytest.mark.parametrize("sign", [-1, 1])
 @pytest.mark.parametrize("n,rows", [(16, 4099), (96, 513), (120, 257),
-                                    (250, 64), (256, 1000), (1000, 64),
-                                    (2048, 32), (4096, 48)])
+                                    (250, 64), (251, 300), (256, 1000),
+                                    (1000, 64), (2048, 32), (4096, 48)])
 def test_dft64_kernel_matches_plain_and_cufft(cuda, n, rows, sign):
     """K4 alone (n <= 256) against its plain version at 1e-13 of max, and
     the recursion against cuFFT in complex128 at 1e-12; two runs are bit
@@ -109,6 +151,22 @@ def test_dft64_kernel_matches_plain_and_cufft(cuda, n, rows, sign):
     assert _rel(got, ref) <= 1e-12
     if n <= 256:
         assert _rel(got, dft64.dft_last_plain(x, sign)) <= 1e-13
+
+
+def test_dft64_kernel_every_length(cuda):
+    """K4 on every length of its contract, 1 to 256, both signs, against
+    its plain version at 1e-13 and cuFFT at 1e-12 of max; repeats are bit
+    for bit the same."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for n in range(1, dft64.KERNEL_MAX + 1):
+        x = torch.randn((37, n), generator=g, device=cuda,
+                        dtype=torch.complex128)
+        for sign in (-1, 1):
+            got = dft64.dft_last(x, sign)
+            ref = torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * n
+            assert torch.equal(got, dft64.dft_last(x, sign)), (n, sign)
+            assert _rel(got, ref) <= 1e-12, (n, sign)
+            assert _rel(got, dft64.dft_last_plain(x, sign)) <= 1e-13, (n, sign)
 
 
 @pytest.mark.parametrize("impl", ["torch", "kernel"])

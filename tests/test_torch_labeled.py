@@ -283,3 +283,34 @@ def test_products_leave_the_callers_tf32_setting_alone():
         assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+def test_products_between_legacy_tf32_flips():
+    """A caller who flips the legacy ``allow_tf32`` flag around the port's
+    products: each product runs with TF32 off, and neither torch nor the
+    port raises on the next check (restoring only the generic precision
+    left oneDNN at "tf32", which torch then refused as a mix of its two
+    APIs)."""
+    from xrft_tpu_torch.config import full_fp32
+    from xrft_tpu_torch.ops import fft_fourstep
+
+    before = torch.get_float32_matmul_precision()
+    matmul = torch.backends.cuda.matmul
+    try:
+        for flag in (True, False, True, False):
+            matmul.allow_tf32 = flag
+            fft_fourstep.fft_last_plain(torch.ones(2, 256))
+            with full_fp32():
+                assert not matmul.allow_tf32
+                assert torch.get_float32_matmul_precision() == "highest"
+            assert matmul.allow_tf32 is flag
+            assert torch.get_float32_matmul_precision() == \
+                ("high" if flag else "highest")
+        matmul.fp32_precision = "tf32"
+        with full_fp32():
+            assert matmul.fp32_precision == "ieee"
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = "none"
+        torch.backends.mkldnn.matmul.fp32_precision = "none"
+        torch.set_float32_matmul_precision(before)

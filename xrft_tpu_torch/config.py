@@ -107,13 +107,29 @@ def level0_impl(impl: str):
 @contextmanager
 def full_fp32():
     """float32 matrix products at full float32 grade (no TF32) inside the
-    block; the caller's setting is restored on the way out."""
-    old = torch.get_float32_matmul_precision()
+    block; the caller's setting is restored on the way out.
+
+    torch keeps one generic precision and one per backend (cuBLAS, oneDNN),
+    which ``torch.backends.cuda.matmul.allow_tf32`` also writes.  Setting
+    the generic one sets both backends, so restoring only the generic value
+    would leave oneDNN at a value the caller never chose, and torch raises
+    on its next check of a caller who then flips ``allow_tf32``.  Both
+    backends are therefore restored as they were.  A generic value that
+    torch itself refuses to read (the caller mixed the two APIs) is left as
+    "highest"."""
+    cuda, cpu = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
+    backends = cuda.fp32_precision, cpu.fp32_precision
+    try:
+        generic = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        generic = None
     torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(old)
+        if generic is not None:
+            torch.set_float32_matmul_precision(generic)
+        cuda.fp32_precision, cpu.fp32_precision = backends
 
 
 @contextmanager

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so a build takes seconds.  It is compiled for Hopper (``sm_90a``) into
 ``xrft_tpu_torch/_build/<name>-<hash>.so`` at first use; the hash covers the
-source and the compiler flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time.
+source, every shared header ``csrc/*.cuh`` and the compiler flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_seconds"]
+__all__ = ["load", "digest", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -63,11 +64,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, the headers ``csrc/*.cuh`` (names and
+    bytes) and the nvcc flags: the build's cache key."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = BUILD_DIR / f"{name}-{digest(name)}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,5 @@
-"""K4: the FP64 direct DFT along the last axis (``csrc/dft64.cu``), and the
+"""K4: the FP64 DFT along the last axis, n <= 256 (``csrc/dft64.cu``, a
+shared-memory Stockham FFT on the plan of :mod:`.fft_plan`), and the
 four-step recursion that makes it the base case of any composite length.
 
 Counterpart of ``xrft_tpu/ops/df64_fft.py``: ``_df64_dft_last`` (the Pallas
@@ -12,8 +13,8 @@ kernel computes in FP64.  The factor chain (``n1`` the largest divisor of
 host in float64 with exact integer angle reduction.
 
 :func:`dft_last` launches the CUDA kernel for a CUDA tensor and runs its
-plain version :func:`dft_last_plain` (``x @ W`` against the dense matrix
-built from the same table) for a CPU tensor; any other device raises.
+plain version :func:`dft_last_plain` (``x @ W`` against the dense DFT
+matrix) for a CPU tensor; any other device raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from . import fft_plan
 
 __all__ = ["KERNEL_MAX", "dft_last", "dft_last_plain", "fft_last", "fftn64"]
 
@@ -74,6 +77,14 @@ def _table(n, sign, device):
 
 
 @lru_cache(maxsize=64)
+def _plan(n, sign, device):
+    """The kernel's int32 plan (host) and its complex128 table on
+    ``device``, copied there once."""
+    plan, table = fft_plan.build(n, sign)
+    return plan, torch.tensor(table, device=device)
+
+
+@lru_cache(maxsize=64)
 def _twiddle_t(n1, n2, sign, device):
     """T transposed to (m2, k1), the layout of stage 1's output, on
     ``device``, copied there once."""
@@ -95,7 +106,8 @@ def _check(x: torch.Tensor, sign: int) -> int:
 
 def dft_last_plain(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     """Plain torch version of the kernel: ``x @ W`` in complex128, with
-    ``W[j, k] = table[(j*k) mod n]`` built from the kernel's table."""
+    ``W[j, k] = table[(j*k) mod n]`` built from the n-entry table of
+    ``W_n^e`` (the TPU kernel's DFT matrix)."""
     n = _check(x, sign)
     j = np.arange(n, dtype=np.int64)
     w = _table(n, sign, x.device)[
@@ -121,12 +133,13 @@ def dft_last(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     from ._build import load
 
     with torch.cuda.device(x.device):
-        table = _table(n, sign, x.device)
+        plan, table = _plan(n, sign, x.device)
         fn = load("dft64").dft64_last
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(x.data_ptr(), out.data_ptr(), table.data_ptr(), rows, n,
+        err = fn(x.data_ptr(), out.data_ptr(), plan.ctypes.data,
+                 table.data_ptr(), rows,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"dft_last kernel launch failed: CUDA error {err}")

@@ -1,13 +1,16 @@
-"""K2: the four-step DFT along the last axis (``csrc/fft_fourstep.cu``).
+"""K2: the float32 DFT along the last axis (``csrc/fft_fourstep.cu``).
 
 Counterpart of ``xrft_tpu/ops/pallas_fft.py::pallas_fft_last``: for
 ``n = n1*n2`` with ``(n1, n2) = _balanced_factors(n)`` (both <= 256, and
 ``n >= 256``), a float32 or complex64 ``(..., n)`` input gives the
 unnormalised complex64 DFT ``sum_j x[j] exp(sign*2*pi*i*j*k/n)`` in natural
-frequency order.  The factor choice, the tables and the digit order are
-those of the TPU kernel, so :func:`fft_last_plain` (torch einsums) pins them
-on the CPU.  :func:`fft_last` launches the CUDA kernel for a CUDA tensor and
-runs the plain version for a CPU tensor; any other device raises.
+frequency order.  The kernel is a shared-memory Stockham FFT on the plan of
+:mod:`.fft_plan`: one launch for rows of up to ``FUSED_MAX`` points, the
+four-step form in two passes through a scratch tensor above that.  The
+plain version :func:`fft_last_plain` (torch einsums) keeps the TPU kernel's
+factors, tables and digit order, which the CPU tests pin against it.
+:func:`fft_last` launches the CUDA kernel for a CUDA tensor and runs the
+plain version for a CPU tensor; any other device raises.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import numpy as np
 import torch
 
 from ..config import full_fp32
+from . import fft_plan
 
 __all__ = ["fft_last", "fft_last_plain", "check_supported"]
 
 MIN_N = 256
+FUSED_MAX = 8192   # longest row the kernel transforms in shared memory
 
 
 @lru_cache(maxsize=None)
@@ -69,14 +74,21 @@ def _tables(n1, n2, sign, device):
     return [torch.as_tensor(t, device=device) for t in _tables_np(n1, n2, sign)]
 
 
+@lru_cache(maxsize=64)
+def _plan(n, sign, device):
+    """The kernel's int32 plan (host; two passes above ``FUSED_MAX``) and
+    its table rounded to complex64 on ``device``, copied there once."""
+    split = None if n <= FUSED_MAX else _balanced_factors(n)
+    plan, table = fft_plan.build(n, sign, split)
+    return plan, torch.as_tensor(table.astype(np.complex64), device=device)
+
+
 def fft_last_plain(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
-    """Plain torch version of the kernel, with the same tables: two einsums
-    and the twiddle multiply.  Runs in complex64 with TF32 off on a CUDA
-    device."""
+    """Plain torch version of the kernel, on the TPU kernel's tables: two
+    einsums and the twiddle multiply, in complex64 at full float32 grade
+    (``full_fp32``, which leaves the caller's TF32 setting as it was)."""
     n = x.shape[-1]
     n1, n2 = check_supported(n, x.dtype)
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     t1, t2, tn = _tables(n1, n2, sign, x.device)
     j1, j2 = np.arange(n1), np.arange(n2)
     dev = x.device
@@ -114,20 +126,23 @@ def fft_last(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
-    scratch = torch.empty((rows, n), dtype=torch.complex64, device=x.device)
+    scratch = None
+    if n > FUSED_MAX:
+        scratch = torch.empty((rows, n), dtype=torch.complex64,
+                              device=x.device)
     from ._build import load
 
     with torch.cuda.device(x.device):
-        t1, t2, tn = _tables(n1, n2, sign, x.device)
+        plan, table = _plan(n, sign, x.device)
         fn = load("fft_fourstep").fft_fourstep_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(x.data_ptr(), int(x.is_complex()), scratch.data_ptr(),
-                 out.data_ptr(), t1.data_ptr(), t2.data_ptr(), tn.data_ptr(),
-                 rows, n1, n2, torch.cuda.current_stream().cuda_stream)
+        err = fn(x.data_ptr(), int(x.is_complex()),
+                 None if scratch is None else scratch.data_ptr(),
+                 out.data_ptr(), plan.ctypes.data, table.data_ptr(), rows,
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fft_last kernel launch failed: CUDA error {err}")
     fft_last.launches += 1
