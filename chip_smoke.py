@@ -32,7 +32,8 @@ PyTorch version on the card, and drives four paths at full width:
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
 least time the card could take (bytes at 3.35 TB/s or operations at the
-FP32/FP64 peak, whichever is longer).  Every phase
+FP32/FP64/TF32 peak, whichever is longer), and checks that the built K5a
+holds tensor-core instructions (HGMMA in its SASS).  Every phase
 raises on failure; nothing is caught.  Its output ends with the card's name
 and power limit, one JSON line on the kernels, and the JSON status line.
 It fails, and prints no result, without a CUDA device or outside a checkout.
@@ -79,8 +80,9 @@ WELCH_SEG = 1024               # bench.py:385-411
 SG_SHAPE, SG_SEG, SG_DT = (8, 1 << 22), 4096, 2.5e-4   # bench.py:413-445
 HP_WELCH_N, HP_WELCH_SEG = 1024, 256
 # H100 SXM peaks (NVIDIA's data sheet): HBM3, FP32 outside the tensor cores,
-# FP64 on the tensor cores
+# FP64 on the tensor cores, dense TF32 on the tensor cores
 HBM_BYTES_S, FP32_FLOP_S, FP64_FLOP_S = 3.35e12, 67e12, 67e12
+TF32_FLOP_S = 495e12
 T0 = time.perf_counter()
 DEV = "cuda"
 
@@ -94,6 +96,24 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def dot_sass(build) -> list:
+    """The tensor-core instructions (HGMMA, or HMMA in TF32) in the SASS
+    of the built dot library, as cuobjdump prints them."""
+    from pathlib import Path
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    lib = build.BUILD_DIR / f"dot-{build.digest('dot')}.so"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = []
+    for line in text.splitlines():
+        ins = line.split("*/")[1].strip() if "*/" in line else ""
+        if ins.startswith("HGMMA") or (ins.startswith("HMMA")
+                                       and "TF32" in ins):
+            out.append(ins)
+    return out
 
 
 def rel_err(got, ref) -> float:
@@ -136,9 +156,10 @@ def wall_ms(fn, runs=RUNS, warmup=2):
     return statistics.median(times)
 
 
-def event_ms(fn, runs=20, warmup=3):
-    """Median device time in ms of fn() between two CUDA events, the runs
-    back to back (the kernel alone, without the host's synchronize)."""
+def event_ms(fn, runs=20, warmup=3, batch=5):
+    """Median device time in ms of one fn() between two CUDA events around
+    ``batch`` calls back to back (the kernel alone: neither the host's
+    synchronize nor, once the queue runs ahead, its launch overhead)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -147,10 +168,11 @@ def event_ms(fn, runs=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -696,10 +718,11 @@ def inverse_phase(xt, fft_fourstep, card):
 
 
 def k5_phase(dot, card):
-    """K5a and K5c against their plain version at the flagship's level-0
-    operand and at the packed A/B shape, K5c against K5a bit for bit, K5b
-    at the packed shape; then each timed against its plain version and
-    torch.matmul.  Returns the kernels' entries."""
+    """K5a (3xTF32 on the tensor cores) and K5c (FP32 FMAs) each against
+    their plain version at the flagship's level-0 operand and at the packed
+    A/B shape, repeats bit for bit, K5b at the packed shape; then each timed
+    against its plain version and torch.matmul, in A/B loops and back to
+    back between CUDA events.  Returns the kernels' entries."""
     w = field((64, 32), 21)
     wp = dot.pack_block_diag(w, 4)                       # (256, 128)
     cases = {"engine": (w, field(K5_ENGINE, 22)),
@@ -709,32 +732,46 @@ def k5_phase(dot, card):
         got = dot.dot(wm, xm)
         again = dot.dot(wm, xm)
         dma = dot.dot_dma(wm, xm)
+        dma_again = dot.dot_dma(wm, xm)
         plain = dot.dot_plain(wm, xm)
         torch.cuda.synchronize()
         err = rel_err(got, plain)
         check(err <= 1e-6, f"K5a {name}: rel err {err:.3e} vs plain > 1e-6")
         check(torch.equal(got, again), f"K5a {name}: two launches differ")
-        check(torch.equal(got, dma), f"K5c {name}: differs from K5a")
+        err_c = rel_err(dma, plain)
+        check(err_c <= 1e-6 and torch.equal(dma, dma_again),
+              f"K5c {name}: rel err {err_c:.3e} vs plain (limit 1e-6), "
+              f"repeats equal {torch.equal(dma, dma_again)}")
         max_abs = (got - plain).abs().max().item()
+        max_abs_c = (dma - plain).abs().max().item()
         m, k = wm.shape
         ncols = got.shape[1]
-        del got, again, dma, plain
+        del got, again, dma, dma_again, plain
         tp, tk = ab_ms(lambda: dot.dot_plain(wm, xm),
                        lambda: dot.dot(wm, xm))
         ta, tc = ab_ms(lambda: dot.dot(wm, xm), lambda: dot.dot_dma(wm, xm))
         t_lib = wall_ms(lambda: torch.matmul(wm, xm))
+        ev_k = event_ms(lambda: dot.dot(wm, xm))
+        ev_lib = event_ms(lambda: torch.matmul(wm, xm))
         nbytes = (k + m) * ncols * 4 + m * k * 4
-        b_ms, b_by = bound(nbytes, 2.0 * m * k * ncols)
+        flops = 2.0 * m * k * ncols
+        # K5a: three TF32 products on the tensor cores; K5c: FP32 FMAs
+        b_ms, b_by = bound(nbytes, 3 * flops, TF32_FLOP_S)
+        bc_ms, bc_by = bound(nbytes, flops)
         log(f"phase 12: K5a/K5c {name} ({m},{k})@({k},{ncols}): rel err vs "
-            f"plain {err:.3e} (limit 1e-6), K5c == K5a bit for bit; K5a "
-            f"{tk:.3f} ms ({nbytes / tk / 1e6:.0f} GB/s, "
-            f"{2.0 * m * k * ncols / tk / 1e9:.1f} TFLOP/s, {b_ms / tk:.1%} "
-            f"of the {b_by} bound {b_ms:.3f} ms), K5c {tc:.3f} ms (K5a "
-            f"beside it {ta:.3f}), plain {tp:.3f} ms, torch.matmul "
-            f"{t_lib:.3f} ms [{card}]")
+            f"plain K5a {err:.3e}, K5c {err_c:.3e} (limit 1e-6), repeats "
+            f"bit-identical; K5a {tk:.3f} ms ({nbytes / tk / 1e6:.0f} GB/s, "
+            f"{b_ms / tk:.1%} of the {b_by} bound {b_ms:.3f} ms: 3xTF32 at "
+            f"495 TFLOP/s against bytes at 3.35 TB/s), K5c {tc:.3f} ms (K5a "
+            f"beside it {ta:.3f}; {bc_by} bound {bc_ms:.3f} ms), plain "
+            f"{tp:.3f} ms, torch.matmul {t_lib:.3f} ms; back to back "
+            f"between CUDA events K5a {ev_k:.3f} ms, torch.matmul "
+            f"{ev_lib:.3f} ms, K5a faster: {ev_k < ev_lib} [{card}]")
         out[name] = dict(max_abs_err=max_abs, ms=tk, plain_ms=tp,
                          library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
-                         dma_ms=tc)
+                         dma_ms=tc, dma_max_abs_err=max_abs_c,
+                         dma_bound_ms=bc_ms, dma_bound_by=bc_by,
+                         event_ms=ev_k, library_event_ms=ev_lib)
     wm, xm = cases["packed"]
     got = dot.dot_fold(wm, xm)
     plain = dot.dot_fold_plain(wm, xm)
@@ -981,22 +1018,31 @@ def main():
     log(f"phase 1: csrc built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc per source, in parallel: "
         f"{_build.build_seconds or 'up to date'})")
+    sass = dot_sass(_build)
+    hgmma = sorted({ln.split()[0] for ln in sass if ln.startswith("HGMMA")})
+    log(f"phase 1: the dot library's SASS holds {len(sass)} tensor-core "
+        f"instructions of K5a: {', '.join(hgmma)}")
+    check(bool(hgmma), "K5a's SASS holds no HGMMA: not on the tensor cores")
 
-    # ---- phase 2: K1 against its plain version ---------------------------
+    # ---- phase 2: K1 against its plain version, bit for bit --------------
     k1_err = 0.0
-    for shape, nx in (((8, 4096, 2049), 4096), ((3, 1001, 499), 997)):
-        F = field(shape, 1, torch.complex64)
-        for shift in (True, False):
-            got = mirror.mirror_psd(F, nx, shift, 0.37)
-            ref = mirror.mirror_psd_plain(F, nx, shift, 0.37)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
-            err = (got - ref).abs().max().item()
-            if shape[0] == 8:
-                k1_err = max(k1_err, err)
-            log(f"phase 2: K1 {shape}->{nx} shift={shift}: max abs err "
-                f"{err:.3e} (rtol 1e-6)")
-        del F, got, ref
+    for shape, nx in (((8, 4096, 2049), 4096), ((3, 1001, 499), 997),
+                      ((2, 3, 4099), 8193)):
+        for dtype in (torch.complex64, torch.complex128):
+            F = field(shape, 1, dtype)
+            for shift in (True, False):
+                got = mirror.mirror_psd(F, nx, shift, 0.37)
+                ref = mirror.mirror_psd_plain(F, nx, shift, 0.37)
+                torch.cuda.synchronize()
+                check(got.dtype == ref.dtype and torch.equal(got, ref),
+                      f"K1 {shape}->{nx} {dtype} shift={shift}: differs from "
+                      f"plain, max abs err {(got - ref).abs().max().item()}")
+                err = (got - ref).abs().max().item()
+                if shape[0] == 8 and dtype == torch.complex64:
+                    k1_err = max(k1_err, err)
+                log(f"phase 2: K1 {shape}->{nx} {dtype} shift={shift}: equal "
+                    f"to plain bit for bit")
+            del F, got, ref
 
     # ---- phase 3: K2 against its plain version and cuFFT -----------------
     k2_err = 0.0
@@ -1113,13 +1159,20 @@ def main():
     del da
 
     F = field((8, 4096, 2049), 3, torch.complex64)
+    check(torch.equal(mirror.mirror_psd(F, 4096, True, 1.0),
+                      mirror.mirror_psd_plain(F, 4096, True, 1.0)),
+          "K1 (8, 4096, 2049)->4096: differs from plain")
     k1_plain, k1_ms = ab_ms(lambda: mirror.mirror_psd_plain(F, 4096, True, 1.0),
                             lambda: mirror.mirror_psd(F, 4096, True, 1.0))
+    k1_ev = event_ms(lambda: mirror.mirror_psd(F, 4096, True, 1.0))
     gbytes = (F.numel() * 8 + 8 * 4096 * 4096 * 4) / 1e9
     k1_bound = bound(gbytes * 1e9, 4.0 * 8 * 4096 * 4096)
-    log(f"phase 5: K1 (8, 4096, 2049)->4096: kernel {k1_ms:.3f} ms "
-        f"({gbytes / k1_ms * 1e3:.0f} GB/s of the {gbytes:.2f} GB it must move), "
-        f"plain {k1_plain:.3f} ms [{card}]")
+    log(f"phase 5: K1 (8, 4096, 2049)->4096, equal to plain bit for bit: "
+        f"kernel {k1_ms:.3f} ms ({gbytes / k1_ms * 1e3:.0f} GB/s of the "
+        f"{gbytes:.2f} GB it must move), plain {k1_plain:.3f} ms; back to "
+        f"back between CUDA events kernel {k1_ev:.3f} ms, "
+        f"{k1_bound[0] / k1_ev:.1%} of the {k1_bound[1]} bound "
+        f"{k1_bound[0]:.3f} ms [{card}]")
     del F
 
     k2_ms = k2_plain = k2_lib = k2_bytes = k2_flops = 0.0
@@ -1167,11 +1220,12 @@ def main():
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]
-    log(f"K5 at the packed shape (256,128)@(128,{K5_PACKED_N}): K5a "
-        f"{packed['ms']:.3f} ms, K5c {packed['dma_ms']:.3f} ms, plain "
-        f"{packed['plain_ms']:.3f} ms, torch.matmul "
-        f"{packed['library_ms']:.3f} ms, {packed['bound_by']} bound "
-        f"{packed['bound_ms']:.3f} ms")
+    for name, e in (("engine", engine), ("packed", packed)):
+        log(f"K5 {name}: K5a {e['ms']:.3f} ms (back to back "
+            f"{e['event_ms']:.3f}), K5c {e['dma_ms']:.3f} ms, plain "
+            f"{e['plain_ms']:.3f} ms, torch.matmul {e['library_ms']:.3f} ms "
+            f"(back to back {e['library_event_ms']:.3f}), K5a's "
+            f"{e['bound_by']} bound {e['bound_ms']:.3f} ms")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1205,9 +1259,10 @@ def main():
         {"name": "dot_dma", "route": "cuda", "source": dot_src,
          "replaces": "xrft_tpu/ops/pallas_dot.py:157",
          "launches": k5_launches["dot_dma"],
-         "max_abs_err": engine["max_abs_err"], "ms": engine["dma_ms"],
-         "plain_ms": engine["plain_ms"], "bound_ms": engine["bound_ms"],
-         "bound_by": engine["bound_by"], "library_ms": engine["library_ms"]},
+         "max_abs_err": engine["dma_max_abs_err"], "ms": engine["dma_ms"],
+         "plain_ms": engine["plain_ms"], "bound_ms": engine["dma_bound_ms"],
+         "bound_by": engine["dma_bound_by"],
+         "library_ms": engine["library_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

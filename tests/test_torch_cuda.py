@@ -35,10 +35,17 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("shape,nx", [((2, 7, 5), 9), ((1, 6, 6), 10),
-                                      ((1, 6, 8), 10), ((3, 64, 40), 78)])
+@pytest.mark.parametrize("shape,nx", [
+    ((2, 7, 5), 9), ((1, 6, 6), 10), ((1, 6, 8), 10), ((3, 64, 40), 78),
+    ((2, 1, 3), 1), ((3, 2, 3), 2), ((3, 3, 4), 3), ((2, 4, 4), 3),
+    ((3, 5, 4), 2),
+    ((2, 3, 4099), 8193),   # several column chunks a row, odd NX
+])
 @pytest.mark.parametrize("shift", [True, False])
 def test_mirror_kernel_matches_plain(cuda, shape, nx, shift, dtype):
+    """K1 bit for bit against its plain version: any NY and NX, odd or
+    even, MH beyond NX//2 + 1, odd NY with B > 1, rows whose 16-byte
+    alignment alternates (odd MH, odd NX)."""
     g = torch.Generator(device=cuda).manual_seed(nx)
     F = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
     before = mirror.mirror_psd.launches
@@ -47,7 +54,7 @@ def test_mirror_kernel_matches_plain(cuda, shape, nx, shift, dtype):
     ref = mirror.mirror_psd_plain(F, nx, shift, 0.37)
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype and got.shape == ref.shape
-    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("sign", [-1, 1])
@@ -290,11 +297,14 @@ def test_main_path_through_kernels(cuda, impl):
     (64, 32, (300, 32, 32)),        # a digit axis in the middle, strided
     (48, 24, (24, 1001)),           # ragged rows, columns and K
     (10, 7, (3, 7, 13)),            # Q not a multiple of 4: scalar copies
+    (256, 128, (128, 8195)),        # the packed shape at a ragged N
+    (256, 128, (5, 128, 13)),       # packed, strided, Q not a multiple of 4
+    (130, 96, (96, 1000)),          # two M chunks and three K chunks, ragged
 ])
 def test_dot_kernels_match_plain(cuda, m, k, shape):
-    """K5a and K5c against their plain torch.matmul at 1e-6 of max, K5c
-    equal to K5a bit for bit, repeats bit-identical; K5b (M = 2K only)
-    against its plain version."""
+    """K5a (3xTF32) and K5c (FP32 FMAs) each against their plain
+    torch.matmul at 1e-6 of max, each repeat bit-identical; K5b (M = 2K
+    only) against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(m * k)
     w = torch.randn((m, k), generator=g, device=cuda)
     x = torch.randn(shape, generator=g, device=cuda)
@@ -302,13 +312,14 @@ def test_dot_kernels_match_plain(cuda, m, k, shape):
     got = dot.dot(w, x)
     again = dot.dot(w, x)
     dma = dot.dot_dma(w, x)
+    dma_again = dot.dot_dma(w, x)
     assert (dot.dot.launches, dot.dot_dma.launches) == \
-        (counts[0] + 2, counts[1] + 1)
+        (counts[0] + 2, counts[1] + 2)
     ref = dot.dot_plain(w, x)
     torch.cuda.synchronize()
     assert got.shape == ref.shape
-    assert torch.equal(got, again) and torch.equal(got, dma)
-    assert _rel(got, ref) <= 1e-6
+    assert torch.equal(got, again) and torch.equal(dma, dma_again)
+    assert _rel(got, ref) <= 1e-6 and _rel(dma, ref) <= 1e-6
     if m == 2 * k:
         before = dot.dot_fold.launches
         fold = dot.dot_fold(w, x)

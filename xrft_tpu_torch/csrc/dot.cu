@@ -3,10 +3,11 @@
 //
 // Replaces: xrft_tpu/ops/pallas_dot.py::make_dot_kernel (K5a),
 // ::make_dot_fold_kernel (K5b) and ::make_dot_kernel_dma (K5c).  The TPU
-// kernels run W(M, K) @ X(K, N) at Precision.HIGHEST (float32 grade) on the
-// matrix unit; the matmul FFT engine's real-input level-0 product is K5a at
-// W(64, 32) @ X(32, 4,194,304) on the flagship, or the G=4 block-diagonal
-// packing W(256, 128) @ X(128, 1,048,576) that fills the TPU's 128x128 unit.
+// kernels run W(M, K) @ X(K, N) at Precision.HIGHEST (float32 grade, six
+// bf16 passes) on the matrix unit; the matmul FFT engine's real-input
+// level-0 product is K5a at W(64, 32) @ X(32, 4,194,304) on the flagship,
+// or the G=4 block-diagonal packing W(256, 128) @ X(128, 1,048,576) that
+// fills the TPU's 128x128 unit.
 //
 //   dot:      out[m, c] = sum_{j<K} W[m, j] X[j, c]                (M, N)
 //   dot_fold: out[r, c] = (W[:K] X)[r, c] + 1e-38 (W[K:] X)[r, c]   (K, N), M = 2K
@@ -16,23 +17,45 @@
 // engine's (2, k, *rest) product of a digit axis in the middle of its array
 // needs no moveaxis copy.  The wrapper passes W transposed, Wt(K, M).
 //
-// Bound on Hopper: TF32 keeps about three decimal digits, so every product
-// is an FP32 FMA on the CUDA cores (67 TFLOP/s).  At (64,32)@(32, 4.19M) the
-// kernel must move 1.61 GB (0.48 ms at 3.35 TB/s) and do 1.72e10 flop (0.26
-// ms): memory-bound.  The packed (256,128)@(128, 1.05M) moves the same bytes
-// but does 6.87e10 flop (1.03 ms): compute-bound.  Design (simple first): a
-// block of 256 threads owns a 64-row x 128-column output tile and walks K in
-// chunks of 32; each chunk of X (32 x 128) and of Wt (32 x 64, or 32 x 128
-// for the fold's two halves) is copied into shared memory with cp.async
-// (16-byte copies when the strides allow, 4-byte ones otherwise, zero-filled
-// past the ragged edges), and each thread keeps an 8 x 4 register tile of
-// outputs: per j one float4 of X, two float4 broadcasts of Wt and 32 FMAs.
-// K5a runs one tile per block, copy then compute.  K5c runs persistent
-// blocks that walk the tiles with a two-stage ring, the copy of step s+1 in
-// flight while step s computes, the counterpart of the TPU kernel's two-slot
-// make_async_copy loop.  Both sum j in ascending order with one fmaf per
-// term, so K5c equals K5a bit for bit and repeats are bit-identical.  No
-// atomics.  wgmma in 3xTF32 is later work.
+// K5a: 3xTF32 on the tensor cores.  Hopper's counterpart of the TPU's
+// split-precision passes: each operand v is split into hi = tf32_rna(v) and
+// lo = tf32_rna(v - hi) (cvt.rna.tf32.f32), and three TF32 products
+// x_lo.w_hi + x_hi.w_lo + x_hi.w_hi run on wgmma with float32 accumulators;
+// the two small terms go into one accumulator, the large one into another,
+// and the two are added once at the end (x_lo.w_lo, below 2^-22 of each
+// term, is dropped).  Bound: at 495 TFLOP/s dense TF32 the packed shape's
+// 3 x 6.87e10 flop take 0.42 ms, under the 0.48 ms its 1.61 GB take at
+// 3.35 TB/s, so both shapes are bound by bytes.  Design: TF32 wgmma takes
+// its shared-memory operands K-major only and X is column-contiguous, so a
+// block computes the transposed tile out^T(c, m) = X^T W^T: A = a 64-column
+// slab of X per warpgroup, read from shared memory into registers (where
+// the hi/lo split happens), B = the split W, K-major, in shared memory
+// (no swizzle; core matrices of 8 rows x 4 k).  The wrapper's scratch
+// holds W split once, per (M chunk of MT rows, K chunk of 32) in that
+// layout, so a stage's W is one contiguous copy.  Persistent blocks walk
+// (128-column tile, M chunk) tiles and their K chunks, warp-specialized: a
+// producer warpgroup (40 registers, setmaxnreg) keeps a ring of 3-4 stages
+// of X and W chunks filling with cp.async, each stage's mbarrier completing
+// when its copies land; two consumer warpgroups (232 registers) each take
+// 64 columns of the tile, run 12 wgmma per stage, release the stage on a
+// second mbarrier and write a finished tile through a staging buffer of
+// their own as float4 rows, so one warpgroup's stores overlap the other's
+// products and the copies run on throughout.  MT = 64 for M <= 64 (wgmma
+// m64n64k8), else 128 (m64n128k8) with the M chunks of one column tile on
+// neighbouring blocks, so X's second read comes from L2.
+//
+// K5b and K5c: FP32 FMAs on the CUDA cores (67 TFLOP/s).  A block of 256
+// threads owns a 64-row x 128-column output tile and walks K in chunks of
+// 32; each chunk of X (32 x 128) and of Wt (32 x 64, or 32 x 128 for the
+// fold's two halves) is copied into shared memory with cp.async (16-byte
+// copies when the strides allow, 4-byte ones otherwise, zero-filled past
+// the ragged edges), and each thread keeps an 8 x 4 register tile of
+// outputs: per j one float4 of X, two float4 broadcasts of Wt and 32 FMAs,
+// j ascending with one fmaf per term.  K5b runs one tile per block.  K5c
+// runs persistent blocks that walk the tiles with a two-stage ring, the
+// copy of step s+1 in flight while step s computes, the counterpart of the
+// TPU kernel's two-slot make_async_copy loop.  No atomics anywhere: every
+// kernel's repeats are bit-identical.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +63,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 64;   // output rows per tile
+constexpr int kBM = 64;   // output rows per tile (FMA kernels)
 constexpr int kBN = 128;  // columns per tile
 constexpr int kBK = 32;   // K per chunk
 
@@ -51,7 +74,7 @@ struct Args {
   int M, K, out_rows;
   long long P, Q, N, sP, sK, sQ;
   int col_tiles, row_tiles, nk;
-  bool vec_in, vec_out;
+  bool vec_in, vec_out, narrow;  // narrow: N < 2^32
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -79,43 +102,429 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Where column col of column tile ct starts in `a` (the first of a float4
+// of columns when vec_in); the one division by Q of a tile.
+struct XSrc {
+  const float* p;
+  bool ok;
+};
+
+__device__ __forceinline__ XSrc x_src(const Args& g, long long ct, int col) {
+  const long long c = ct * kBN + col;
+  XSrc x{g.a, c < g.N};
+  if (x.ok) {
+    const long long p =
+        g.narrow ? (long long)((unsigned)c / (unsigned)g.Q) : c / g.Q;
+    x.p = g.a + p * g.sP + (c - p * g.Q) * g.sQ;
+  }
+  return x;
+}
+
+// Start the copies of K-chunk kc of X's columns at x into xs[kBK][xstride].
+__device__ __forceinline__ void load_x(const Args& g, float* xs, int xstride,
+                                       const XSrc& x, int kc) {
+  const int t = threadIdx.x;
+  const int k0 = kc * kBK;
+  if (g.vec_in) {
+    // float4 f = t + 256 i: row (t >> 5) + 8 i, columns (t & 31) * 4 + 0..3
+#pragma unroll
+    for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
+      const int jj = (t >> 5) + 8 * i;
+      const bool ok = x.ok && (k0 + jj < g.K);
+      const float* src = ok ? x.p + (long long)(k0 + jj) * g.sK : g.a;
+      cp16(xs + jj * xstride + (t & 31) * 4, src, ok);
+    }
+  } else {
+    // element e = t + 256 i: row (t >> 7) + 2 i, column t & 127
+#pragma unroll
+    for (int i = 0; i < kBK * kBN / kThreads; ++i) {
+      const int jj = (t >> 7) + 2 * i;
+      const bool ok = x.ok && (k0 + jj < g.K);
+      const float* src = ok ? x.p + (long long)(k0 + jj) * g.sK : g.a;
+      cp4(xs + jj * xstride + (t & (kBN - 1)), src, ok);
+    }
+  }
+}
+
+// ---- K5a: 3xTF32 on the tensor cores -------------------------------------
+
+constexpr int kTcThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kXS = kBN + 8;     // X stage row stride: A fragments conflict-free
+constexpr int kOSW = 64 + 4;     // staging row stride: fragment stores conflict-free
+
+template <int MT>
+struct TcCfg {
+  static constexpr int kStages = MT == 64 ? 4 : 3;
+  static constexpr int kXFloats = kBK * kXS;
+  static constexpr int kWFloats = 2 * MT * kBK;  // hi then lo
+  static constexpr int kStageFloats = kXFloats + kWFloats;
+  static constexpr int kOutFloats = 2 * MT * kOSW;
+  static constexpr size_t kSmem =
+      (size_t)(kStages * kStageFloats + kOutFloats) * sizeof(float) +
+      2 * kStages * sizeof(uint64_t);
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// wgmma matrix descriptor of a K-major operand without swizzle: start
+// address, LBO (bytes between core matrices adjacent in K) and SBO (bytes
+// between core matrices adjacent in M/N), all in 16-byte units.
+__device__ __forceinline__ uint64_t kmajor_desc(const float* p, int lbo,
+                                                int sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator accesses across a wgmma
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D(64 x N) += A(64 x 8, registers) B(8 x N, shared memory), TF32 in,
+// float32 accumulators.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// Split W once into the scratch ws: for M chunk mc and K chunk kc, block
+// (mc * nk + kc) holds hi then lo, each MT x kBK in core-matrix order:
+// float (ki * (MT/8) + mi) * 32 + (m % 8) * 4 + k % 4 for m = mi*8 + m % 8,
+// k = ki*4 + k % 4 within the chunk; zero past M and K.
+__global__ void split_w_kernel(const float* __restrict__ wt,
+                               float* __restrict__ ws, int M, int K, int MT,
+                               int nk, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int per = MT * kBK;
+  const long long half = i / per;  // (mc * nk + kc) * 2 + (lo ? 1 : 0)
+  const int e = (int)(i - half * per);
+  const long long mk = half >> 1;
+  const int kc = (int)(mk % nk), mc = (int)(mk / nk);
+  const int core = e >> 5, ki = core / (MT / 8), mi = core - ki * (MT / 8);
+  const int m = mc * MT + mi * 8 + ((e & 31) >> 2);
+  const int k = kc * kBK + ki * 4 + (e & 3);
+  const float v = (m < M && k < K) ? wt[(long long)k * M + m] : 0.f;
+  const uint32_t hi = tf32_rna(v);
+  ws[i] = (half & 1) ? __uint_as_float(tf32_rna(__fsub_rn(v, __uint_as_float(hi))))
+                     : __uint_as_float(hi);
+}
+
+// A persistent block's place in its walk: K chunk kc of its tile id (block
+// b takes ids b, b + gridDim.x, ...); id = ct * m_chunks + mc, so the M
+// chunks of one column tile run side by side.  Divisions once a tile.
+struct Cursor {
+  long long id, ct;
+  int mc, kc;
+};
+
+__device__ __forceinline__ void cursor_tile(Cursor& u, int m_chunks) {
+  u.ct = m_chunks == 1 ? u.id : u.id / m_chunks;
+  u.mc = (int)(u.id - u.ct * m_chunks);
+}
+
+__device__ __forceinline__ void cursor_next(Cursor& u, const Args& g,
+                                            int m_chunks) {
+  if (++u.kc == g.nk) {
+    u.kc = 0;
+    u.id += gridDim.x;
+    cursor_tile(u, m_chunks);
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// the 128 threads of warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// Warpgroup wg writes its 64 columns of the tile (mc, ct) through its
+// staging buffer stg: float4 rows, scalar stores at a ragged or unaligned
+// edge.  The caller's wg_sync since the last call keeps stg free.
+template <int MT>
+__device__ __forceinline__ void tc_store(const Args& g, float* stg,
+                                         long long ct, int mc, int wg,
+                                         const float (&acc_s)[MT / 2],
+                                         const float (&acc_b)[MT / 2]) {
+  const int tw = threadIdx.x & 127, lane = tw & 31;
+  // accumulator element i: column c0 + 8 ((i >> 1) & 1), row 8 (i >> 2) +
+  // 2 (lane & 3) + (i & 1) of the warpgroup's part of the tile
+  const int c0 = 16 * (tw >> 5) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < MT / 2; ++i) {
+    const int c = c0 + 8 * ((i >> 1) & 1);
+    const int m = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    stg[m * kOSW + c] = __fadd_rn(acc_s[i], acc_b[i]);
+  }
+  wg_sync(wg);
+  const int rows = min(MT, g.out_rows - mc * MT);
+  const long long c = ct * kBN + 64 * wg + 4 * (tw & 15);
+  for (int r = tw >> 4; r < rows; r += 8) {
+    const float4 v = *reinterpret_cast<const float4*>(stg + r * kOSW + 4 * (tw & 15));
+    float* dst = g.out + (long long)(mc * MT + r) * g.N + c;
+    if (g.vec_out && c + 3 < g.N) {
+      __stcs(reinterpret_cast<float4*>(dst), v);
+    } else {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k < g.N) dst[k] = vv[k];
+    }
+  }
+}
+
+// arrives once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(b))
+               : "memory");
+}
+
+// The producer warpgroup: fills stage after stage of the ring with X's and
+// W's chunks of the block's steps (cp.async, zero-filled past the edges), a
+// stage once both consumer warpgroups have released it; the stage's
+// barrier completes when all 128 threads' copies have landed.
+template <int MT>
+__device__ __forceinline__ void tc_produce(const Args& g, const float* wsplit,
+                                           int m_chunks, long long steps,
+                                           float* smem, uint64_t* full,
+                                           uint64_t* empty) {
+  using C = TcCfg<MT>;
+  constexpr int S = C::kStages;
+  const int t = threadIdx.x & 127;
+  // this thread's X columns: the float4 at 4 (t & 31), rows (t >> 5) + 4 i;
+  // or column t, every row
+  const int col = g.vec_in ? 4 * (t & 31) : t;
+  Cursor u{blockIdx.x, 0, 0, 0};
+  cursor_tile(u, m_chunks);
+  XSrc x = x_src(g, u.ct, col);
+  for (long long s = 0; s < steps; ++s) {
+    const int st = (int)(s % S);
+    if (s >= S) mbar_wait(&empty[st], (uint32_t)((s / S - 1) & 1));
+    float* xs = smem + st * C::kStageFloats;
+    const int k0 = u.kc * kBK;
+    if (g.vec_in) {
+#pragma unroll
+      for (int i = 0; i < kBK / 4; ++i) {
+        const int j = (t >> 5) + 4 * i;
+        const bool ok = x.ok && k0 + j < g.K;
+        cp16(xs + j * kXS + col, ok ? x.p + (long long)(k0 + j) * g.sK : g.a,
+             ok);
+      }
+    } else {
+#pragma unroll 8
+      for (int j = 0; j < kBK; ++j) {
+        const bool ok = x.ok && k0 + j < g.K;
+        cp4(xs + j * kXS + col, ok ? x.p + (long long)(k0 + j) * g.sK : g.a,
+            ok);
+      }
+    }
+    const float* src = wsplit + ((long long)u.mc * g.nk + u.kc) * C::kWFloats;
+#pragma unroll
+    for (int i = t; i < C::kWFloats / 4; i += 128)
+      cp16(xs + C::kXFloats + 4 * i, src + 4 * i, true);
+    mbar_arrive_copies(&full[st]);
+    const long long ct = u.ct;
+    cursor_next(u, g, m_chunks);
+    if (u.ct != ct) x = x_src(g, u.ct, col);
+  }
+  cp_wait<0>();
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dot_tc_kernel(const Args g, const float* __restrict__ wsplit,
+                  int m_chunks) {
+  using C = TcCfg<MT>;
+  constexpr int S = C::kStages;
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + S * C::kStageFloats + C::kOutFloats);
+  uint64_t* empty = full + S;
+  const long long tiles = (long long)g.col_tiles * m_chunks;
+  if ((long long)blockIdx.x >= tiles) return;
+  const long long steps =
+      ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * g.nk;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 128);  // the producer's threads
+      mbar_init(&empty[i], 2);   // the two warpgroups
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    tc_produce<MT>(g, wsplit, m_chunks, steps, smem, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int wg = warp >> 2;
+  float* stg = smem + S * C::kStageFloats + wg * MT * kOSW;
+  // this thread's A fragment: tile columns crow, crow + 8 and k = kq, kq + 4
+  // of each 8-deep step
+  const int crow = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int kq = lane & 3;
+  Cursor u{blockIdx.x, 0, 0, 0};
+  cursor_tile(u, m_chunks);
+  float acc_s[MT / 2], acc_b[MT / 2];
+  for (long long s = 0; s < steps; ++s) {
+    const int st = (int)(s % S);
+    mbar_wait(&full[st], (uint32_t)((s / S) & 1));
+    // the copies were made by the generic proxy; wgmma reads through the
+    // async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (u.kc == 0) {
+#pragma unroll
+      for (int i = 0; i < MT / 2; ++i) acc_s[i] = acc_b[i] = 0.f;
+    }
+    const float* xs = smem + st * C::kStageFloats;
+    const float* ws = xs + C::kXFloats;
+    uint32_t hi[kBK / 8][4], lo[kBK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const float* xk = xs + (kk * 8 + kq) * kXS + crow;
+      const float v[4] = {xk[0], xk[8], xk[4 * kXS], xk[4 * kXS + 8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[kk][i] = tf32_rna(v[i]);
+        lo[kk][i] = tf32_rna(__fsub_rn(v[i], __uint_as_float(hi[kk][i])));
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      // B of step kk: core matrices ki = 2 kk, 2 kk + 1 of hi and of lo
+      const float* wk = ws + 2 * kk * (MT / 8) * 32;
+      const uint64_t dhi = kmajor_desc(wk, MT * 16, 128);
+      const uint64_t dlo = kmajor_desc(wk + MT * kBK, MT * 16, 128);
+      Wgmma<MT>::run(acc_s, lo[kk], dhi);
+      Wgmma<MT>::run(acc_s, hi[kk], dlo);
+      Wgmma<MT>::run(acc_b, hi[kk], dhi);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc_s);
+    reg_fence(acc_b);
+    wg_sync(wg);  // the warpgroup is done with the stage
+    if ((t & 127) == 0) mbar_arrive(&empty[st]);
+    if (u.kc == g.nk - 1) tc_store<MT>(g, stg, u.ct, u.mc, wg, acc_s, acc_b);
+    cursor_next(u, g, m_chunks);
+  }
+}
+
+int tc_rows(int M) { return M <= 64 ? 64 : 128; }
+
+// ---- K5b, K5c: FP32 FMAs -------------------------------------------------
+
 // Start the copies of K-chunk kc of tile (rt, ct) into one stage:
 // xs[kBK][kBN] and ws[kBK][WCOLS].
 template <int WCOLS, bool FOLD>
 __device__ __forceinline__ void load_stage(const Args& g, float* xs, float* ws,
                                            int rt, long long ct, int kc) {
+  const int t0 = threadIdx.x;
+  load_x(g, xs, kBN, x_src(g, ct, g.vec_in ? (t0 & 31) * 4 : (t0 & (kBN - 1))),
+         kc);
   const int t = threadIdx.x;
   const int k0 = kc * kBK;
-  const long long col0 = ct * kBN;
-  if (g.vec_in) {
-    // float4 f = t + 256 i: row (t >> 5) + 8 i, columns (t & 31) * 4 + 0..3
-    const long long c = col0 + (t & 31) * 4;
-    const bool col_ok = c < g.N;
-    const long long p = col_ok ? c / g.Q : 0;
-    const long long q = col_ok ? c - p * g.Q : 0;
-    const float* src0 = g.a + p * g.sP + q;
-#pragma unroll
-    for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
-      const int jj = (t >> 5) + 8 * i;
-      const bool ok = col_ok && (k0 + jj < g.K);
-      const float* src = ok ? src0 + (long long)(k0 + jj) * g.sK : g.a;
-      cp16(xs + jj * kBN + (t & 31) * 4, src, ok);
-    }
-  } else {
-    // element e = t + 256 i: row (t >> 7) + 2 i, column t & 127
-    const long long c = col0 + (t & (kBN - 1));
-    const bool col_ok = c < g.N;
-    const long long p = col_ok ? c / g.Q : 0;
-    const long long q = col_ok ? c - p * g.Q : 0;
-    const float* src0 = g.a + p * g.sP + q * g.sQ;
-#pragma unroll
-    for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-      const int jj = (t >> 7) + 2 * i;
-      const bool ok = col_ok && (k0 + jj < g.K);
-      const float* src = ok ? src0 + (long long)(k0 + jj) * g.sK : g.a;
-      cp4(xs + jj * kBN + (t & (kBN - 1)), src, ok);
-    }
-  }
   const int r0 = rt * kBM;
 #pragma unroll
   for (int i = 0; i < kBK * WCOLS / kThreads; ++i) {
@@ -227,7 +636,7 @@ __device__ __forceinline__ void step_tile(const Args& g, long long s,
 }
 
 __global__ void __launch_bounds__(kThreads) dot_dma_kernel(const Args g) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const long long tiles = (long long)g.col_tiles * g.row_tiles;
   if ((long long)blockIdx.x >= tiles) return;
   const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
@@ -289,26 +698,72 @@ int make_args(Args& g, const void* wt, const void* a, void* out, int M, int K,
   g.vec_in = sQ == 1 && Q % 4 == 0 && sP % 4 == 0 && sK % 4 == 0 &&
              ((uintptr_t)a & 15) == 0;
   g.vec_out = g.N % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  g.narrow = g.N <= 0xffffffffLL;
   return 0;
+}
+
+// Persistent grid: as many blocks as fit on the card at once, at most one
+// per tile.
+template <typename Kernel>
+int persistent_blocks(Kernel kernel, int threads, size_t smem,
+                      long long tiles, long long& blocks) {
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, smem);
+  if (err) return err;
+  blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > tiles) blocks = tiles;
+  return 0;
+}
+
+template <int MT>
+int launch_tc(const Args& g, float* ws, cudaStream_t stream) {
+  const int m_chunks = (g.M + MT - 1) / MT;
+  const long long total = (long long)m_chunks * g.nk * TcCfg<MT>::kWFloats;
+  split_w_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      g.wt, ws, g.M, g.K, MT, g.nk, total);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  long long blocks = 0;
+  err = persistent_blocks(dot_tc_kernel<MT>, kTcThreads, TcCfg<MT>::kSmem,
+                          (long long)g.col_tiles * m_chunks, blocks);
+  if (err) return err;
+  dot_tc_kernel<MT><<<(unsigned)blocks, kTcThreads, TcCfg<MT>::kSmem,
+                      stream>>>(g, ws, m_chunks);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Floats of scratch that dot_f32 needs for W(M, K) split into hi and lo.
+extern "C" long long dot_f32_scratch(int M, int K) {
+  if (M < 1 || K < 1) return 0;
+  const int mt = tc_rows(M);
+  return (long long)((M + mt - 1) / mt) * ((K + kBK - 1) / kBK) * 2 * mt * kBK;
+}
+
 // out(M, P*Q) = W(M, K) @ X with X[j, p*Q + q] = a[p*sP + j*sK + q*sQ];
-// wt is W transposed, (K, M) contiguous; strides in elements.  Launches on
-// `stream`; returns the cudaError_t of the launch (0 on success).
+// wt is W transposed, (K, M) contiguous; strides in elements; scratch holds
+// dot_f32_scratch(M, K) floats, 16-byte aligned.  Launches on `stream`;
+// returns the cudaError_t of the launches (0 on success).
 extern "C" int dot_f32(const void* wt, const void* a, void* out, int M, int K,
                        long long P, long long Q, long long sP, long long sK,
-                       long long sQ, void* stream) {
+                       long long sQ, void* scratch, void* stream) {
   Args g;
   int err = make_args(g, wt, a, out, M, K, M, P, Q, sP, sK, sQ);
   if (err) return err;
   if (g.N == 0) return 0;
-  if (g.row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  dot_tile_kernel<kBM, false>
-      <<<dim3(g.col_tiles, g.row_tiles), kThreads, 0, (cudaStream_t)stream>>>(
-          g);
-  return (int)cudaGetLastError();
+  if (((uintptr_t)scratch & 15) != 0) return (int)cudaErrorInvalidValue;
+  float* ws = (float*)scratch;
+  return tc_rows(M) == 64 ? launch_tc<64>(g, ws, (cudaStream_t)stream)
+                          : launch_tc<128>(g, ws, (cudaStream_t)stream);
 }
 
 // out(K, P*Q) = (W[:K] @ X) + 1e-38 * (W[K:] @ X) for W(2K, K).
@@ -327,7 +782,8 @@ extern "C" int dot_fold_f32(const void* wt, const void* a, void* out, int M,
   return (int)cudaGetLastError();
 }
 
-// dot_f32's function on persistent blocks with a two-stage copy ring.
+// dot_f32's function in FP32 FMAs, on persistent blocks with a two-stage
+// copy ring.
 extern "C" int dot_dma_f32(const void* wt, const void* a, void* out, int M,
                            int K, long long P, long long Q, long long sP,
                            long long sK, long long sQ, void* stream) {
@@ -335,22 +791,10 @@ extern "C" int dot_dma_f32(const void* wt, const void* a, void* out, int M,
   int err = make_args(g, wt, a, out, M, K, M, P, Q, sP, sK, sQ);
   if (err) return err;
   if (g.N == 0) return 0;
-  err = (int)cudaFuncSetAttribute(dot_dma_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kDmaSmem);
+  long long blocks = 0;
+  err = persistent_blocks(dot_dma_kernel, kThreads, kDmaSmem,
+                          (long long)g.col_tiles * g.row_tiles, blocks);
   if (err) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
-  if (!err)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dot_dma_kernel, kThreads, kDmaSmem);
-  if (err) return err;
-  const long long tiles = (long long)g.col_tiles * g.row_tiles;
-  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > tiles) blocks = tiles;
   dot_dma_kernel<<<(unsigned)blocks, kThreads, kDmaSmem,
                    (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();

@@ -5,6 +5,8 @@ Counterpart of ``xrft_tpu/ops/pallas_dot.py``: :func:`pack_block_diag`, K5a
 :func:`dot` (``make_dot_kernel``), K5b :func:`dot_fold`
 (``make_dot_fold_kernel``) and K5c :func:`dot_dma` (``make_dot_kernel_dma``),
 each at full float32 grade, as the TPU kernels run at ``Precision.HIGHEST``.
+K5a runs on the tensor cores in 3xTF32 (:func:`dot_replay` repeats its
+arithmetic on the host, for the tests); K5b and K5c run FP32 FMAs.
 
 ``x`` is the product's right operand: a (K, N) matrix, or a (P, K, Q) array
 read as ``X[j, p*Q + q] = x[p, j, q]`` through its strides, so an axis in the
@@ -26,7 +28,7 @@ import torch
 from ..config import full_fp32
 
 __all__ = ["pack_block_diag", "dot", "dot_fold", "dot_dma", "dot_plain",
-           "dot_fold_plain", "dot_dma_plain"]
+           "dot_fold_plain", "dot_dma_plain", "tf32_rna", "dot_replay"]
 
 
 def pack_block_diag(w2: torch.Tensor, groups: int) -> torch.Tensor:
@@ -84,6 +86,46 @@ def dot_fold_plain(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 dot_dma_plain = dot_plain
 
 
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: the 13
+    low mantissa bits rounded to nearest, ties away from zero, then cleared
+    (the largest finite floats round to inf); inf and NaN pass through."""
+    if v.dtype != torch.float32:
+        raise ValueError(f"tf32_rna takes float32, got {v.dtype}")
+    bits = v.contiguous().view(torch.int32)
+    # the int32 sum never carries into the sign: |bits| <= 0x7f7fffff
+    rounded = (bits + 0x1000) & -0x2000
+    special = (bits & 0x7f800000) == 0x7f800000
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def dot_replay(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K5a's arithmetic on the host (for the tests; the card's kernel is
+    :func:`dot`): each operand split into ``hi = tf32_rna(v)`` and
+    ``lo = tf32_rna(v - hi)``, the small products ``x_lo w_hi`` and
+    ``x_hi w_lo`` summed into one float32 accumulator and ``x_hi w_hi`` into
+    another, 8-deep step by step (each product exact in float32, the sums
+    in k order: the tensor cores' order inside a step is their own), then
+    the two accumulators added."""
+    x3 = _check(w, x)
+    xm = x3.transpose(0, 1).reshape(w.shape[1], -1)     # X(K, N)
+    whi, xhi = tf32_rna(w), tf32_rna(xm)
+    wlo, xlo = tf32_rna(w - whi), tf32_rna(xm - xhi)
+    small = torch.zeros((w.shape[0], xm.shape[1]), dtype=torch.float32,
+                        device=w.device)
+    big = torch.zeros_like(small)
+    K = w.shape[1]
+    for k0 in range(0, K, 8):
+        ks = range(k0, min(K, k0 + 8))
+        for k in ks:
+            small += whi[:, k, None] * xlo[None, k]
+        for k in ks:
+            small += wlo[:, k, None] * xhi[None, k]
+        for k in ks:
+            big += whi[:, k, None] * xhi[None, k]
+    return small + big
+
+
 def _launch(symbol: str, w: torch.Tensor, x3: torch.Tensor,
             out_rows: int) -> torch.Tensor:
     if x3.device.type != "cuda":
@@ -98,24 +140,36 @@ def _launch(symbol: str, w: torch.Tensor, x3: torch.Tensor,
     from ._build import load
 
     with torch.cuda.device(x3.device):
-        fn = getattr(load("dot"), symbol)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib = load("dot")
+        fn = getattr(lib, symbol)
+        argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_longlong]
         sP, sK, sQ = x3.stride()
         if P == 1:
             sP = 0  # one block of columns: its stride is never used
-        err = fn(wt.data_ptr(), x3.data_ptr(), out.data_ptr(), w.shape[0], K,
-                 P, Q, sP, sK, sQ, torch.cuda.current_stream().cuda_stream)
+        args = [wt.data_ptr(), x3.data_ptr(), out.data_ptr(), w.shape[0], K,
+                P, Q, sP, sK, sQ]
+        if symbol == "dot_f32":
+            # K5a's scratch: W split into TF32 hi and lo, in its tile order
+            lib.dot_f32_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.dot_f32_scratch.restype = ctypes.c_longlong
+            scratch = torch.empty(lib.dot_f32_scratch(w.shape[0], K),
+                                  dtype=torch.float32, device=x3.device)
+            argtypes.append(ctypes.c_void_p)
+            args.append(scratch.data_ptr())
+        fn.argtypes = argtypes + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
     return out
 
 
 def dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K5a: ``W(M, K) @ X`` in float32 at full float32 grade."""
+    """K5a: ``W(M, K) @ X`` at float32 grade, in 3xTF32 on the tensor
+    cores (:func:`dot_replay` is its arithmetic)."""
     x3 = _check(w, x)
     if x3.device.type == "cpu":
         return dot_plain(w, x)
@@ -138,8 +192,9 @@ def dot_fold(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def dot_dma(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K5c: K5a's function on persistent blocks with a two-stage copy
-    ring; equal to :func:`dot` bit for bit."""
+    """K5c: K5a's function in FP32 FMAs, on persistent blocks with a
+    two-stage copy ring; within 1e-6 of max of its plain version, and its
+    repeats bit-identical."""
     x3 = _check(w, x)
     if x3.device.type == "cpu":
         return dot_dma_plain(w, x)
