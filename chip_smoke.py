@@ -27,13 +27,15 @@ PyTorch version on the card, and drives four paths at full width:
     in 1024^2 hann segments, without and with 50% overlap) under cuFFT and
     the matmul route, the spectrogram, stft/istft and csd/coherence of
     8 x 2^22-sample series, and the hp Welch of one 1024^2 field against
-    numpy float64.
+    numpy float64;
+  * pad in every mode on the card against numpy.pad.
 
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
 least time the card could take (bytes at 3.35 TB/s or operations at the
-FP32/FP64/TF32 peak, whichever is longer), and checks that the built K5a
-holds tensor-core instructions (HGMMA in its SASS).  Every phase
+FP32/FP64/TF32 peak, whichever is longer), and checks that the built dot
+library holds tensor-core and TMA instructions (HGMMA, UTMALDG and UTMASTG
+in its SASS).  Every phase
 raises on failure; nothing is caught.  Its output ends with the card's name
 and power limit, one JSON line on the kernels, and the JSON status line.
 It fails, and prints no result, without a CUDA device or outside a checkout.
@@ -99,8 +101,9 @@ def card_line() -> str:
 
 
 def dot_sass(build) -> list:
-    """The tensor-core instructions (HGMMA, or HMMA in TF32) in the SASS
-    of the built dot library, as cuobjdump prints them."""
+    """The tensor-core and TMA instructions (HGMMA, HMMA in TF32, UTMALDG,
+    UTMASTG, UBLKCP) in the SASS of the built dot library, as cuobjdump
+    prints them."""
     from pathlib import Path
 
     tool = Path(build._nvcc()).parent / "cuobjdump"
@@ -110,8 +113,8 @@ def dot_sass(build) -> list:
     out = []
     for line in text.splitlines():
         ins = line.split("*/")[1].strip() if "*/" in line else ""
-        if ins.startswith("HGMMA") or (ins.startswith("HMMA")
-                                       and "TF32" in ins):
+        if ins.startswith(("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")) or (
+                ins.startswith("HMMA") and "TF32" in ins):
             out.append(ins)
     return out
 
@@ -289,24 +292,31 @@ def k3_phase(binning, card):
             x = field(shape, 8)
             tp, tk = ab_ms(lambda: binning.binned_sum_plain(x, plan),
                            lambda: binning.binned_sum(x, plan))
+            ev = event_ms(lambda: binning.binned_sum(x, plan))
             # the one PyTorch call: index_add_ along the point axis, the
             # out-of-range points into a spare bin
             idx = torch.as_tensor(np.where(codes >= 0, codes, nbins),
                                   dtype=torch.long, device=DEV)
             spare = torch.zeros(batch + (nbins + 1,), device=DEV)
             t_lib = wall_ms(lambda: spare.zero_().index_add_(1, idx, x))
-            gbytes = (codes.size * 4 + x.numel() * 4) / 1e9
+            # the function's bytes: the data once, pandas' codes once (int16
+            # at 1024 bins) and the output once, whatever the plan's layout
+            nbytes = x.numel() * 4 + codes.size * codes.itemsize + \
+                x.shape[0] * nbins * 4
+            b_ms, b_by = bound(nbytes, x.numel())
+            h = plan.host()
+            nslots = h["run_slot"].size
             log(f"phase 6: K3 {name} {tuple(shape)} float32: kernel "
-                f"{tk:.3f} ms ({gbytes / tk * 1e3:.0f} GB/s of the "
-                f"{gbytes:.3f} GB of index and data it reads), plain "
-                f"{tp:.3f} ms, index_add_ {t_lib:.3f} ms [{card}]")
+                f"{tk:.3f} ms in the A/B loop, {ev:.3f} ms back to back "
+                f"({b_ms / ev:.1%} of the {b_by} bound {b_ms:.3f} ms: "
+                f"{nbytes / 1e9:.4f} GB); plain {tp:.3f} ms, index_add_ "
+                f"{t_lib:.3f} ms; plan: {h['tile_run'].size - 1} tiles of "
+                f"{h['tile']} points, {nslots} runs, slots "
+                f"{2 * nslots * x.shape[0] * 4 / (x.numel() * 4):.1%} of the "
+                f"data [{card}]")
             if name == "full":
-                nbytes = x.numel() * 4 + x.shape[0] * nbins * 4 + sum(
-                    t.numel() * t.element_size()
-                    for t in plan.on(DEV).values())
-                b_ms, b_by = bound(nbytes, x.numel())
                 result.update(ms=tk, plain_ms=tp, library_ms=t_lib,
-                              bound_ms=b_ms, bound_by=b_by)
+                              bound_ms=b_ms, bound_by=b_by, event_ms=ev)
             del x, idx, spare
     return result
 
@@ -718,17 +728,23 @@ def inverse_phase(xt, fft_fourstep, card):
 
 
 def k5_phase(dot, card):
-    """K5a (3xTF32 on the tensor cores) and K5c (FP32 FMAs) each against
-    their plain version at the flagship's level-0 operand and at the packed
-    A/B shape, repeats bit for bit, K5b at the packed shape; then each timed
-    against its plain version and torch.matmul, in A/B loops and back to
-    back between CUDA events.  Returns the kernels' entries."""
+    """K5a and K5c (both 3xTF32 on the tensor cores; K5c with W resident
+    and X by TMA) each against their plain version at the flagship's
+    level-0 operand and at the packed A/B shape, repeats bit for bit, K5b at
+    the packed shape; then each timed against its plain version and
+    torch.matmul, in A/B loops and back to back between CUDA events.
+    Returns the kernels' entries."""
     w = field((64, 32), 21)
     wp = dot.pack_block_diag(w, 4)                       # (256, 128)
     cases = {"engine": (w, field(K5_ENGINE, 22)),
              "packed": (wp, field((128, K5_PACKED_N), 23))}
     out = {}
     for name, (wm, xm) in cases.items():
+        tmap = dot.dma_tensor_map(xm)
+        check(tmap is not None, f"K5c {name}: no TMA tensor map for X")
+        m, k = wm.shape
+        producer = (f"TMA, {tmap['rank']}-D map, box {tmap['box']}, "
+                    f"W in groups of {-(-m // 64)} CTAs")
         got = dot.dot(wm, xm)
         again = dot.dot(wm, xm)
         dma = dot.dot_dma(wm, xm)
@@ -744,7 +760,7 @@ def k5_phase(dot, card):
               f"repeats equal {torch.equal(dma, dma_again)}")
         max_abs = (got - plain).abs().max().item()
         max_abs_c = (dma - plain).abs().max().item()
-        m, k = wm.shape
+        ac = (got - dma).abs().max().item()
         ncols = got.shape[1]
         del got, again, dma, dma_again, plain
         tp, tk = ab_ms(lambda: dot.dot_plain(wm, xm),
@@ -752,25 +768,26 @@ def k5_phase(dot, card):
         ta, tc = ab_ms(lambda: dot.dot(wm, xm), lambda: dot.dot_dma(wm, xm))
         t_lib = wall_ms(lambda: torch.matmul(wm, xm))
         ev_k = event_ms(lambda: dot.dot(wm, xm))
+        ev_c = event_ms(lambda: dot.dot_dma(wm, xm))
         ev_lib = event_ms(lambda: torch.matmul(wm, xm))
         nbytes = (k + m) * ncols * 4 + m * k * 4
         flops = 2.0 * m * k * ncols
-        # K5a: three TF32 products on the tensor cores; K5c: FP32 FMAs
+        # K5a and K5c: three TF32 products on the tensor cores
         b_ms, b_by = bound(nbytes, 3 * flops, TF32_FLOP_S)
-        bc_ms, bc_by = bound(nbytes, flops)
         log(f"phase 12: K5a/K5c {name} ({m},{k})@({k},{ncols}): rel err vs "
-            f"plain K5a {err:.3e}, K5c {err_c:.3e} (limit 1e-6), repeats "
-            f"bit-identical; K5a {tk:.3f} ms ({nbytes / tk / 1e6:.0f} GB/s, "
-            f"{b_ms / tk:.1%} of the {b_by} bound {b_ms:.3f} ms: 3xTF32 at "
-            f"495 TFLOP/s against bytes at 3.35 TB/s), K5c {tc:.3f} ms (K5a "
-            f"beside it {ta:.3f}; {bc_by} bound {bc_ms:.3f} ms), plain "
-            f"{tp:.3f} ms, torch.matmul {t_lib:.3f} ms; back to back "
-            f"between CUDA events K5a {ev_k:.3f} ms, torch.matmul "
-            f"{ev_lib:.3f} ms, K5a faster: {ev_k < ev_lib} [{card}]")
+            f"plain K5a {err:.3e}, K5c {err_c:.3e} (limit 1e-6), K5a vs K5c "
+            f"max abs {ac:.3e}, repeats bit-identical; K5c's X producer: "
+            f"{producer}; {b_by} bound {b_ms:.3f} ms (3xTF32 at 495 TFLOP/s "
+            f"against {nbytes / 1e9:.3f} GB at 3.35 TB/s); A/B loop K5a "
+            f"{tk:.3f} ms (plain {tp:.3f}), K5c {tc:.3f} ms (K5a beside it "
+            f"{ta:.3f}), torch.matmul {t_lib:.3f} ms; back to back between "
+            f"CUDA events K5a {ev_k:.3f} ms, K5c {ev_c:.3f} ms "
+            f"({b_ms / ev_c:.1%} of the bound), torch.matmul {ev_lib:.3f} ms; "
+            f"K5c faster than torch.matmul: {ev_c < ev_lib} [{card}]")
         out[name] = dict(max_abs_err=max_abs, ms=tk, plain_ms=tp,
                          library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
                          dma_ms=tc, dma_max_abs_err=max_abs_c,
-                         dma_bound_ms=bc_ms, dma_bound_by=bc_by,
+                         dma_event_ms=ev_c, dma_producer=producer,
                          event_ms=ev_k, library_event_ms=ev_lib)
     wm, xm = cases["packed"]
     got = dot.dot_fold(wm, xm)
@@ -997,6 +1014,51 @@ def segments_phase(xt, k5a, card):
     return k5_launches
 
 
+# every mode of pad, with numpy.pad's keywords on (z, t) and then on (y, x)
+PAD_MODES = (
+    ("constant", {}), ("constant", dict(constant_values=(1.0, -2.0))),
+    ("edge", {}), ("wrap", {}), ("reflect", {}), ("symmetric", {}),
+    ("reflect", dict(reflect_type="odd")),
+    ("symmetric", dict(reflect_type="odd")),
+    ("linear_ramp", {}), ("linear_ramp", dict(end_values=(0.5, -1.5))),
+    ("maximum", dict(stat_length=64)), ("minimum", {}),
+    ("mean", dict(stat_length=(100, 7))), ("median", dict(stat_length=33)),
+)
+
+
+def pad_phase(xt, card):
+    """pad in every mode on the card, on the stft's 8 x 2^22 series (2048
+    points a side, the stft's boundary pad) and on a 2-D field padded on
+    both axes (the corners), against numpy.pad on the host: bit for bit, or
+    2e-6 of max for the mean (its sum in another order)."""
+    sig = xt.LabeledArray(field(SG_SHAPE, 34), dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    fld = xt.LabeledArray(field((257, 300), 35), dims=("y", "x"),
+                          coords={"y": np.arange(257) * 0.5,
+                                  "x": np.arange(300) * 0.5})
+    host_sig, host_fld = sig.values, fld.values
+    for mode, kw in PAD_MODES:
+        for da, host, widths in ((sig, host_sig, dict(t=(2048, 2048))),
+                                 (fld, host_fld, dict(y=(3, 300),
+                                                      x=(70, 1)))):
+            got = xt.pad(da, widths, mode=mode, **kw)
+            torch.cuda.synchronize()
+            check(got.data.is_cuda, f"pad {mode} {kw}: left the card")
+            np_w = [widths.get(d, (0, 0)) for d in da.dims]
+            want = np.pad(host, np_w, mode=mode, **kw)
+            g = got.values
+            err = float(np.abs(g - want).max() / np.abs(want).max())
+            lim = 2e-6 if mode == "mean" else 0.0
+            check(g.shape == want.shape and g.dtype == want.dtype
+                  and err <= lim, f"pad {mode} {kw} {tuple(host.shape)}: "
+                                  f"rel err {err:.3e} vs numpy (limit {lim})")
+        t_pad = wall_ms(lambda: xt.pad(sig, dict(t=(2048, 2048)), mode=mode,
+                                       **kw), runs=3, warmup=1)
+        log(f"phase 15: pad {mode} {kw}: on the card, equal to numpy.pad "
+            f"{'within 2e-6 of max' if mode == 'mean' else 'bit for bit'} "
+            f"on {SG_SHAPE} and on (257, 300) padded on both axes; "
+            f"{t_pad:.3f} ms on {SG_SHAPE} [{card}]")
+
 
 def main():
     # ---- phase 1: device, versions, build --------------------------------
@@ -1019,10 +1081,14 @@ def main():
         f"(nvcc per source, in parallel: "
         f"{_build.build_seconds or 'up to date'})")
     sass = dot_sass(_build)
-    hgmma = sorted({ln.split()[0] for ln in sass if ln.startswith("HGMMA")})
-    log(f"phase 1: the dot library's SASS holds {len(sass)} tensor-core "
-        f"instructions of K5a: {', '.join(hgmma)}")
-    check(bool(hgmma), "K5a's SASS holds no HGMMA: not on the tensor cores")
+    ops = sorted({ln.split()[0].rstrip(";") for ln in sass})
+    log(f"phase 1: the dot library's SASS holds {len(sass)} tensor-core and "
+        f"TMA instructions of K5a and K5c: {', '.join(ops)}")
+    check(any(o.startswith("HGMMA") for o in ops),
+          "the dot library's SASS holds no HGMMA: not on the tensor cores")
+    check(any(o.startswith("UTMALDG") for o in ops)
+          and any(o.startswith("UTMASTG") for o in ops),
+          "K5c's SASS holds no TMA load (UTMALDG) or store (UTMASTG)")
 
     # ---- phase 2: K1 against its plain version, bit for bit --------------
     k1_err = 0.0
@@ -1217,14 +1283,16 @@ def main():
     welch_k5a = segments_phase(xt, dot.dot, card)
     log(f"phase 14: K5a launches on the Welch flagship under 'matmul': "
         f"{welch_k5a}")
+    pad_phase(xt, card)
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]
     for name, e in (("engine", engine), ("packed", packed)):
         log(f"K5 {name}: K5a {e['ms']:.3f} ms (back to back "
-            f"{e['event_ms']:.3f}), K5c {e['dma_ms']:.3f} ms, plain "
+            f"{e['event_ms']:.3f}), K5c {e['dma_ms']:.3f} ms (back to back "
+            f"{e['dma_event_ms']:.3f}; {e['dma_producer']}), plain "
             f"{e['plain_ms']:.3f} ms, torch.matmul {e['library_ms']:.3f} ms "
-            f"(back to back {e['library_event_ms']:.3f}), K5a's "
+            f"(back to back {e['library_event_ms']:.3f}), the "
             f"{e['bound_by']} bound {e['bound_ms']:.3f} ms")
 
     print(card, flush=True)
@@ -1260,9 +1328,18 @@ def main():
          "replaces": "xrft_tpu/ops/pallas_dot.py:157",
          "launches": k5_launches["dot_dma"],
          "max_abs_err": engine["dma_max_abs_err"], "ms": engine["dma_ms"],
-         "plain_ms": engine["plain_ms"], "bound_ms": engine["dma_bound_ms"],
-         "bound_by": engine["dma_bound_by"],
-         "library_ms": engine["library_ms"]},
+         "plain_ms": engine["plain_ms"], "bound_ms": engine["bound_ms"],
+         "bound_by": engine["bound_by"],
+         "library_ms": engine["library_ms"],
+         "event_ms": engine["dma_event_ms"],
+         "producer": engine["dma_producer"],
+         "packed": {k: packed[v] for k, v in (
+             ("max_abs_err", "dma_max_abs_err"), ("ms", "dma_ms"),
+             ("event_ms", "dma_event_ms"), ("plain_ms", "plain_ms"),
+             ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+             ("library_ms", "library_ms"),
+             ("library_event_ms", "library_event_ms"),
+             ("producer", "dma_producer"))}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

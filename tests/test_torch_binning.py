@@ -6,7 +6,7 @@ against ``xrft_tpu.ops.binning.binned_sum`` on its three routes: the one-hot
 matmul, the sorted prefix difference and the Pallas kernel in interpret mode.
 Tolerances: 1e-12 in float64; rtol 2e-6 / atol 1e-4 in float32, as
 ``tests/test_isotropic.py`` holds the JAX routes to each other.  K3's own
-work split (the chunk table) is replayed in numpy against a float64 oracle.
+work split (the tile plan) is replayed in numpy against a float64 oracle.
 """
 
 import numpy as np
@@ -159,44 +159,125 @@ def test_reference_sorted_route_is_float32_grade_in_float64(monkeypatch):
 
 
 def _replay_k3(x, plan):
-    """K3's two passes (csrc/binned_sum.cu) in numpy float64: chunk partial
-    sums over the sorted order, then each bin's partials in chunk order."""
+    """K3's two passes (csrc/binned_sum.cu) in numpy float64 over the tile
+    plan: pass 1 sums each run of each tile out of the tile's natural-order
+    copy into its slot, pass 2 adds each bin's slots in order.  Also counts
+    the reads of every point."""
     h = plan.host()
-    off, bc, order = h["chunk_off"], h["bin_chunk"], h["order"]
-    rows = x.reshape(-1, plan.size)
-    partial = np.stack([rows[:, order[off[k]:off[k + 1]]].sum(axis=-1)
-                        for k in range(off.size - 1)], axis=-1) \
-        if off.size > 1 else np.zeros((rows.shape[0], 0))
-    out = np.stack([partial[:, bc[b]:bc[b + 1]].sum(axis=-1)
+    tile, local, start = h["tile"], h["local"], h["run_start"]
+    rows = x.reshape(-1, plan.size).astype(np.float64)
+    nslots = h["run_slot"].size
+    partial = np.full((rows.shape[0], nslots), np.nan)
+    reads = np.zeros(plan.size, np.int64)
+    for t in range(h["tile_run"].size - 1):
+        seg = rows[:, t * tile:(t + 1) * tile]          # the copied tile
+        for k in range(h["tile_run"][t], h["tile_run"][t + 1]):
+            offs = local[start[k]:start[k + 1]].astype(np.int64)
+            reads[t * tile + offs] += 1
+            partial[:, h["run_slot"][k]] = seg[:, offs].sum(axis=-1)
+    off = h["bin_off"]
+    out = np.stack([partial[:, off[b]:off[b + 1]].sum(axis=-1)
                     for b in range(plan.nbins)], axis=-1)
-    return out.reshape(x.shape[:-1] + (plan.nbins,))
+    return out.reshape(x.shape[:-1] + (plan.nbins,)), reads
 
 
-@pytest.mark.parametrize("chunk", [1, 7, 64, 4096])
-def test_k3_chunk_table_covers_every_bin_once(chunk, monkeypatch):
-    monkeypatch.setattr(binning, "CHUNK", chunk)
+@pytest.mark.parametrize("run_max", [5, 128])
+@pytest.mark.parametrize("tile", [1, 7, 64, 4096])
+def test_k3_tile_plan_replay_reads_every_point_once(tile, run_max,
+                                                    monkeypatch):
+    monkeypatch.setattr(binning, "TILE", tile)
+    monkeypatch.setattr(binning, "RUN_MAX", run_max)
     codes, nbins, x = _case(P=2500, nbins=23, batch=(3,))
     plan = binning.BinPlan(codes, nbins)
     h = plan.host()
-    off, bc = h["chunk_off"], h["bin_chunk"]
-    assert off.dtype == np.int32 and bc.dtype == np.int32
-    assert off[0] == np.count_nonzero(codes < 0) and off[-1] == codes.size
-    assert np.all(np.diff(off) >= 1) and np.all(np.diff(off) <= chunk)
-    assert bc[0] == 0 and bc[-1] == off.size - 1
+    assert h["tile"] == tile and h["tile_run"].size == -(-2500 // tile) + 1
+    got, reads = _replay_k3(x, plan)
+    npt.assert_array_equal(reads, (codes >= 0).astype(np.int64))
+    runs = np.diff(h["run_start"])
+    assert runs.min() >= 1 and runs.max() <= run_max     # no empty run
     ref = _oracle(x, codes, nbins)
-    npt.assert_allclose(_replay_k3(x, plan), ref, rtol=0,
-                        atol=1e-12 * np.abs(ref).max())
+    npt.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    assert np.all(got[..., 5] == 0)                      # the empty bin
 
 
-def test_k3_chunk_table_with_every_point_dropped():
+def test_k3_tile_plan_with_every_point_dropped():
     plan = binning.BinPlan(np.full(10, -1), 4)
     h = plan.host()
-    assert h["chunk_off"].tolist() == [10]
-    assert h["bin_chunk"].tolist() == [0, 0, 0, 0, 0]
+    assert h["local"].size == 0 and h["run_start"].tolist() == [0]
+    assert h["tile_run"].tolist() == [0, 0]
+    assert h["bin_off"].tolist() == [0, 0, 0, 0, 0]
     x = np.ones((2, 10))
-    npt.assert_array_equal(_replay_k3(x, plan), np.zeros((2, 4)))
+    got, reads = _replay_k3(x, plan)
+    npt.assert_array_equal(got, np.zeros((2, 4)))
+    assert not reads.any()
     npt.assert_array_equal(binning.binned_sum(torch.ones(2, 10), plan),
                            np.zeros((2, 4)))
+
+
+def test_k3_tile_plan_with_a_tile_all_dropped(monkeypatch):
+    monkeypatch.setattr(binning, "TILE", 8)
+    codes = np.arange(40) % 5
+    codes[8:16] = -1                                     # tile 1
+    codes[35:] = -1                                      # half of tile 4
+    plan = binning.BinPlan(codes, 5)
+    h = plan.host()
+    assert h["tile_run"][1] == h["tile_run"][2]          # tile 1: no run
+    x = np.random.RandomState(2).randn(2, 40)
+    got, reads = _replay_k3(x, plan)
+    npt.assert_array_equal(reads, (codes >= 0).astype(np.int64))
+    ref = _oracle(x, codes, 5)
+    npt.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+
+
+def test_k3_tile_at_the_16_bit_limit(monkeypatch):
+    """65536 points a tile: the last offset is 65535, the most 16 bits
+    hold; one more point a tile is refused."""
+    monkeypatch.setattr(binning, "TILE", 65536)
+    rng = np.random.RandomState(3)
+    codes = rng.randint(-1, 9, 70000)
+    codes[65535] = 4
+    plan = binning.BinPlan(codes, 9)
+    h = plan.host()
+    assert h["local"].dtype == np.uint16 and h["local"].max() == 65535
+    x = rng.randn(1, 70000)
+    got, reads = _replay_k3(x, plan)
+    npt.assert_array_equal(reads, (codes >= 0).astype(np.int64))
+    ref = _oracle(x, codes, 9)
+    npt.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    monkeypatch.setattr(binning, "TILE", 65537)
+    with pytest.raises(ValueError, match="16 bits"):
+        binning.BinPlan(codes, 9).host()
+
+
+def test_k3_tile_plan_dtypes_and_radial_bin_ranges(monkeypatch):
+    """The offsets take 2 bytes a kept point and the run tables int32; on a
+    radial grid each tile (a band of whole grid rows) touches one
+    contiguous range of bins in order (a bin's stretch longer than RUN_MAX
+    cut into several runs), and a bin's slots are in tile order."""
+    monkeypatch.setattr(binning, "TILE", 4 * 64)
+    monkeypatch.setattr(binning, "RUN_MAX", 16)
+    codes, nbins = binning.cut_codes(_radial((64, 64)), 16)
+    plan = binning.BinPlan(codes, nbins)
+    h = plan.host()
+    assert h["local"].dtype == np.uint16
+    assert h["local"].size == np.count_nonzero(codes >= 0)
+    for k in ("run_start", "run_slot", "tile_run", "bin_off"):
+        assert h[k].dtype == np.int32
+    slot_bin = np.repeat(np.arange(nbins), np.diff(h["bin_off"]))
+    slot_tile = np.empty(h["run_slot"].size, np.int64)
+    cut = False             # a bin's stretch of a tile cut at RUN_MAX
+    for t in range(h["tile_run"].size - 1):
+        runs = np.arange(h["tile_run"][t], h["tile_run"][t + 1])
+        bins = slot_bin[h["run_slot"][runs]]
+        assert np.all(np.diff(bins) >= 0)
+        npt.assert_array_equal(np.unique(bins),
+                               np.arange(bins[0], bins[-1] + 1))
+        slot_tile[h["run_slot"][runs]] = t
+        cut |= bins.size > np.unique(bins).size
+    assert cut and np.diff(h["run_start"]).max() <= binning.RUN_MAX
+    for b in range(nbins):       # a bin's slots in tile order
+        assert np.all(np.diff(slot_tile[h["bin_off"][b]:h["bin_off"][b + 1]])
+                      >= 0)
 
 
 def test_binned_sum_checks_its_input():

@@ -302,9 +302,9 @@ def test_main_path_through_kernels(cuda, impl):
     (130, 96, (96, 1000)),          # two M chunks and three K chunks, ragged
 ])
 def test_dot_kernels_match_plain(cuda, m, k, shape):
-    """K5a (3xTF32) and K5c (FP32 FMAs) each against their plain
-    torch.matmul at 1e-6 of max, each repeat bit-identical; K5b (M = 2K
-    only) against its plain version."""
+    """K5a and K5c (3xTF32, K5c with W resident and X by TMA or cp.async)
+    each against their plain torch.matmul at 1e-6 of max, each repeat
+    bit-identical; K5b (M = 2K only) against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(m * k)
     w = torch.randn((m, k), generator=g, device=cuda)
     x = torch.randn(shape, generator=g, device=cuda)
@@ -328,6 +328,26 @@ def test_dot_kernels_match_plain(cuda, m, k, shape):
     else:
         with pytest.raises(ValueError, match="M == 2K"):
             dot.dot_fold(w, x)
+
+
+def test_dot_dma_against_dot_at_the_packed_shape(cuda):
+    """K5c (W resident in a group of four CTAs, X by TMA) and K5a run the
+    same 3xTF32 arithmetic: at the packed shape both lie within 1e-6 of max
+    of torch.matmul, and their largest difference is logged."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = dot.pack_block_diag(torch.randn((64, 32), generator=g, device=cuda),
+                            4)
+    x = torch.randn((128, 1 << 16), generator=g, device=cuda)
+    assert dot.dma_tensor_map(x)["rank"] == 2
+    a, c = dot.dot(w, x), dot.dot_dma(w, x)
+    ref = dot.dot_plain(w, x)
+    torch.cuda.synchronize()
+    diff = (a - c).abs().max().item()
+    print(f"K5a vs K5c at (256,128)@(128,65536): max abs diff {diff:.3e}, "
+          f"rel {diff / ref.abs().max().item():.3e}")
+    assert _rel(a, ref) <= 1e-6 and _rel(c, ref) <= 1e-6
+    assert _rel(c, a) <= 1e-6
+    assert torch.equal(c, dot.dot_dma(w, x))
 
 
 @pytest.mark.parametrize("impl", ["unpacked", "packed"])
@@ -355,15 +375,26 @@ def test_matmul_route_through_k5a(cuda, impl):
 @pytest.mark.parametrize("mode,kw", [
     ("constant", {}), ("constant", dict(constant_values=dict(t=(1.0, 2.0)))),
     ("edge", {}), ("reflect", {}), ("symmetric", {}), ("wrap", {}),
+    ("reflect", dict(reflect_type="odd")),
+    ("symmetric", dict(reflect_type="odd")),
+    ("linear_ramp", {}), ("linear_ramp", dict(end_values=dict(t=(1.0, 2.0)))),
+    ("maximum", dict(stat_length=5)), ("minimum", {}),
+    ("median", dict(stat_length=dict(t=(4, 9)))), ("mean", {}),
 ])
 def test_pad_on_the_card_matches_numpy(cuda, mode, kw):
-    """pad runs on the card in every mode it takes there, equal to numpy's
-    pad bit for bit."""
+    """pad runs every mode on the card and stays there.  It repeats
+    numpy.pad's own steps, so it equals numpy bit for bit, except the mean,
+    whose sum the card takes in another order (2e-6 of max in float32)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn((3, 40), generator=g, device=cuda)
     da = LabeledArray(x, ("time", "t"), {"t": np.arange(40) * 0.5})
     got = pad(da, dict(t=(7, 45)), mode=mode, **kw)
-    np_kw = dict(constant_values=(1.0, 2.0)) if kw else {}
+    np_kw = {k: (((0, 0), v["t"]) if isinstance(v, dict) else v)
+             for k, v in kw.items()}
     want = np.pad(x.cpu().numpy(), ((0, 0), (7, 45)), mode=mode, **np_kw)
     assert got.data.is_cuda
-    np.testing.assert_array_equal(got.data.cpu().numpy(), want)
+    if mode == "mean":
+        np.testing.assert_allclose(got.data.cpu().numpy(), want, rtol=0,
+                                   atol=2e-6 * np.abs(want).max())
+    else:
+        np.testing.assert_array_equal(got.data.cpu().numpy(), want)

@@ -128,3 +128,57 @@ def test_replay_property_small_shapes(m, k, n, seed):
     want = w.astype(np.float64) @ x.astype(np.float64)
     assert got.shape == (m, n)
     assert np.abs(got - want).max() <= TOL * max(np.abs(want).max(), 1e-30)
+
+
+# every shape of tests/test_torch_cuda.py::test_dot_kernels_match_plain and
+# chip_smoke.py's two timed shapes, with the producer K5c takes for each
+DMA_SHAPES = [
+    ((32, 40000), 2), ((128, 8192), 2), ((300, 32, 32), 3), ((24, 1001), 0),
+    ((3, 7, 13), 0), ((128, 8195), 0), ((5, 128, 13), 0), ((96, 1000), 2),
+    ((32768, 32, 128), 3),          # chip_smoke's engine shape: TMA, 3-D
+    ((128, 1 << 20), 2),            # chip_smoke's packed shape: TMA, 2-D
+]
+
+
+@pytest.mark.parametrize("shape,rank", DMA_SHAPES)
+def test_dma_tensor_map_layouts(shape, rank):
+    """K5c's TMA-or-cp.async choice: the tensor map's strides are 16-byte
+    multiples, its box divides the 128-column x 32-deep tile, and the map
+    addresses the same elements as the strides."""
+    x = torch.empty(shape, dtype=torch.float32)
+    tm = dot.dma_tensor_map(x)
+    if rank == 0:
+        assert tm is None
+        return
+    assert tm["rank"] == rank == len(tm["dims"]) == len(tm["box"])
+    assert len(tm["strides"]) == rank - 1
+    assert all(s % 16 == 0 for s in tm["strides"])
+    assert dot.DMA_TILE_COLS % tm["box"][0] == 0 and 32 % tm["box"][1] == 0
+    assert tm["box"][0] * 4 == 128                # the 128-byte swizzle span
+    x3 = x.unsqueeze(0) if x.ndim == 2 else x
+    P, K, Q = x3.shape
+    assert tm["dims"][:2] == (Q, K)
+    assert tm["strides"][0] == x3.stride(1) * 4
+    if rank == 3:
+        assert tm["dims"][2] == P and tm["strides"][1] == x3.stride(0) * 4
+        assert Q % tm["box"][0] == 0 and tm["box"][2] == 1
+
+
+def test_dma_tensor_map_refuses_what_the_tma_cannot_read():
+    x = torch.empty((64, 4096), dtype=torch.float32)
+    assert dot.dma_tensor_map(x) is not None
+    assert dot.dma_tensor_map(x[:, 1:]) is None          # base off 16 bytes
+    assert dot.dma_tensor_map(x[:, ::2]) is None         # strided columns
+    assert dot.dma_tensor_map(torch.empty((8, 32, 48))) is None  # Q % 32
+    assert dot.dma_tensor_map(torch.empty((8, 32, 64))[:, :, :32]) is not None
+
+
+def test_dma_contract_on_the_host():
+    """K5c keeps W resident: M <= 512 and K <= 256, on every device."""
+    x = torch.zeros((300, 10))
+    with pytest.raises(ValueError, match="resident"):
+        dot.dot_dma(torch.zeros((520, 300)), x)
+    with pytest.raises(ValueError, match="resident"):
+        dot.dot_dma(torch.zeros((513, 8)), torch.zeros((8, 10)))
+    got = dot.dot_dma(torch.ones((512, 256)), torch.ones((256, 3)))
+    assert got.shape == (512, 3) and bool((got == 256).all())

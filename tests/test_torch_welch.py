@@ -212,8 +212,81 @@ def test_pad_device_modes_stay_on_the_device(mode):
 
 
 @pytest.mark.parametrize("mode,kw", [
-    ("linear_ramp", {}), ("mean", {}), ("reflect", dict(reflect_type="odd")),
+    ("linear_ramp", {}), ("linear_ramp", dict(end_values=dict(t=(1.0, 2.0)))),
+    ("mean", {}), ("median", dict(stat_length=3)), ("maximum", {}),
+    ("minimum", dict(stat_length=dict(t=(2, 5)))),
+    ("reflect", dict(reflect_type="odd")),
+    ("symmetric", dict(reflect_type="odd")),
 ])
-def test_pad_host_modes_raise_off_the_cpu(mode, kw):
-    with pytest.raises(NotImplementedError, match="only on a CPU tensor"):
-        xt.pad(_meta_series(), dict(t=2), mode=mode, **kw)
+def test_pad_computed_modes_stay_on_the_device(mode, kw):
+    """The modes that compute new values pad on the data's device too (the
+    meta device stands in for the card): no host round trip, no raise."""
+    got = xt.pad(_meta_series(), dict(t=(2, 45)), mode=mode, **kw)
+    assert got.data.device.type == "meta" and got.shape == (3, 87)
+
+
+# the modes numpy computes, each on 1-D and 2-D widths: (pad_width, the
+# port's and xrft_tpu's keywords, numpy.pad's keywords on (time, t))
+COMPUTED_PADS = {
+    "ramp": (dict(t=(3, 5)), dict(mode="linear_ramp"), {}),
+    "ramp_ends": (dict(t=(4, 2)),
+                  dict(mode="linear_ramp", end_values=dict(t=(1.5, -2.0))),
+                  dict(end_values=((0, 0), (1.5, -2.0)))),
+    "ramp_2d": (dict(t=(3, 6), time=(1, 2)),
+                dict(mode="linear_ramp", end_values=0.5),
+                dict(end_values=0.5)),
+    "maximum": (dict(t=(2, 3)), dict(mode="maximum", stat_length=4),
+                dict(stat_length=4)),
+    "minimum_2d": (dict(t=3, time=(2, 1)), dict(mode="minimum"), {}),
+    "mean_2d": (dict(t=(4, 1), time=1),
+                dict(mode="mean", stat_length=dict(t=(3, 7), time=2)),
+                dict(stat_length=((2, 2), (3, 7)))),
+    "median": (dict(t=(5, 2)), dict(mode="median", stat_length=dict(t=6)),
+               dict(stat_length=((3, 3), (6, 6)))),
+    "median_2d": (dict(t=2, time=(1, 3)), dict(mode="median"), {}),
+    "reflect_odd_wide": (dict(t=(90, 7)),
+                         dict(mode="reflect", reflect_type="odd"),
+                         dict(reflect_type="odd")),
+    "symmetric_odd_2d": (dict(t=(3, 50), time=2),
+                         dict(mode="symmetric", reflect_type="odd"),
+                         dict(reflect_type="odd")),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", sorted(COMPUTED_PADS))
+def test_pad_computed_modes_match_reference_and_numpy(case, dtype):
+    """Held to xrft_tpu.pad (jnp.pad, XLA's arithmetic) at TOL of max: a
+    ramp, a mean or a median may round apart from XLA's.  Held to numpy.pad
+    (whose steps the port repeats) bit for bit, except the mean, whose sum
+    numpy takes in another order: 1e-12 in float64, 2e-6 in float32."""
+    ref, da = _series(n=40, dtype=dtype)
+    widths, kw, np_kw = COMPUTED_PADS[case]
+    got = xt.pad(da, widths, **kw)
+    want_ref = xrft_tpu.pad(ref, widths, **kw)
+    assert_same(got, want_ref, TOL[dtype])
+    np_widths = [widths.get(d, 0) for d in da.dims]
+    np_widths = [(w, w) if isinstance(w, int) else w for w in np_widths]
+    want = np.pad(da.values, np_widths, mode=kw["mode"], **np_kw)
+    assert got.values.dtype == want.dtype
+    if kw["mode"] == "mean":
+        npt.assert_allclose(got.values, want, rtol=0,
+                            atol=TOL[dtype] * np.abs(want).max())
+    else:
+        npt.assert_array_equal(got.values, want)
+    assert_same(xt.unpad(got), xrft_tpu.unpad(want_ref), TOL[dtype])
+
+
+@pytest.mark.parametrize("mode", ["mean", "median", "linear_ramp"])
+def test_pad_rounds_integer_data_as_numpy(mode):
+    """Integer data: the mean and median round half to even, the ramp
+    floors, as numpy.pad does."""
+    x = np.array([[1, 2, 4, 7, 8], [0, -3, 5, 2, 9]], dtype=np.int32)
+    da = xt.LabeledArray(torch.as_tensor(x), dims=("time", "t"),
+                         coords={"t": np.arange(5) * 0.5})
+    kw = dict(end_values=dict(t=(-7, 3))) if mode == "linear_ramp" else {}
+    got = xt.pad(da, dict(t=(3, 4)), mode=mode, **kw)
+    np_kw = dict(end_values=((0, 0), (-7, 3))) if kw else {}
+    want = np.pad(x, ((0, 0), (3, 4)), mode=mode, **np_kw)
+    assert got.data.dtype == torch.int32
+    npt.assert_array_equal(got.values, want)

@@ -44,19 +44,43 @@
 // m64n64k8), else 128 (m64n128k8) with the M chunks of one column tile on
 // neighbouring blocks, so X's second read comes from L2.
 //
-// K5b and K5c: FP32 FMAs on the CUDA cores (67 TFLOP/s).  A block of 256
-// threads owns a 64-row x 128-column output tile and walks K in chunks of
-// 32; each chunk of X (32 x 128) and of Wt (32 x 64, or 32 x 128 for the
-// fold's two halves) is copied into shared memory with cp.async (16-byte
-// copies when the strides allow, 4-byte ones otherwise, zero-filled past
-// the ragged edges), and each thread keeps an 8 x 4 register tile of
-// outputs: per j one float4 of X, two float4 broadcasts of Wt and 32 FMAs,
-// j ascending with one fmaf per term.  K5b runs one tile per block.  K5c
-// runs persistent blocks that walk the tiles with a two-stage ring, the
-// copy of step s+1 in flight while step s computes, the counterpart of the
-// TPU kernel's two-slot make_async_copy loop.  No atomics anywhere: every
-// kernel's repeats are bit-identical.
+// K5c: K5a's function and arithmetic, with the copies made explicit, as the
+// TPU kernel's two-slot DMA ring in and out.  W stays resident in shared
+// memory: a group of ceil(M / 64) CTAs (at most 8, so M <= 512) holds it,
+// each CTA 64 rows of the split W (hi and lo, every K chunk: 16 KB a chunk,
+// K <= 256), brought in once by a bulk copy, and runs wgmma m64n64k8 on it
+// for its whole persistent loop.  The persistent grid holds whole groups;
+// the CTAs of a group walk the same 128-column tiles, and being resident at
+// once they read each X tile about the same time, one read from device
+// memory and the others from L2.  X arrives by TMA (cp.async.bulk.tensor,
+// 128-byte swizzle) in four 32 x 32 sub-tiles a stage, and a stage's
+// mbarrier completes on its 16 KB.  (Launching a group as a thread-block
+// cluster, and a multicast producer that loads each sub-tile once for the
+// cluster, both measured slower on an H100: PERF.md.)  The A
+// fragments are read from the swizzled stage (two-way bank conflicts at
+// most) and split as K5a's.  Each consumer warpgroup writes its 64 x 64
+// output block into a swizzled staging buffer and one thread stores it by
+// TMA (cp.async.bulk.tensor store) while the next tile's products run.
+// Layouts the TMA cannot describe (a base or stride not a multiple of 16
+// bytes, Q below 32 with P > 1: ops/dot.py::dma_tensor_map decides) take a
+// cp.async producer warpgroup in the same kernel, and an output whose rows
+// are not 16-byte multiples is stored by the warpgroup from the staging
+// buffer.  Shared memory: 1 KB of alignment + W (16 KB a K chunk: 64 KB at
+// the packed shape (256, 128), 16 KB at the engine's (64, 32)) + 4 X
+// stages x 16 KB + 2 x 16 KB of output staging = 161 KB at the packed
+// shape, 113 KB at the engine's.  Bound: bytes, as K5a.
+//
+// K5b: FP32 FMAs on the CUDA cores (67 TFLOP/s).  A block of 256 threads
+// owns a 64-row x 128-column output tile of each half of W and walks K in
+// chunks of 32; each chunk of X (32 x 128) and of Wt (32 x 128: both
+// halves) is copied into shared memory with cp.async (16-byte copies when
+// the strides allow, 4-byte ones otherwise, zero-filled past the ragged
+// edges), and each thread keeps two 8 x 4 register tiles of outputs: per j
+// one float4 of X, four float4 broadcasts of Wt and 64 FMAs, j ascending
+// with one fmaf per term.  No atomics anywhere: every kernel's repeats are
+// bit-identical.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -263,6 +287,53 @@ struct Wgmma<128> {
   }
 };
 
+// This thread's A fragments of one K chunk (kBK deep: four 8-deep steps),
+// read through at(k, column): tile columns crow, crow + 8 and k = kq, kq + 4
+// of each step, split into TF32 hi and lo (hi = tf32_rna(v), lo =
+// tf32_rna(v - hi)).  ops/dot.py::dot_replay repeats this arithmetic.
+template <typename At>
+__device__ __forceinline__ void split_frags(At at, int crow, int kq,
+                                            uint32_t (&hi)[kBK / 8][4],
+                                            uint32_t (&lo)[kBK / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk) {
+    const int k = kk * 8 + kq;
+    const float v[4] = {at(k, crow), at(k, crow + 8), at(k + 4, crow),
+                        at(k + 4, crow + 8)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[kk][i] = tf32_rna(v[i]);
+      lo[kk][i] = tf32_rna(__fsub_rn(v[i], __uint_as_float(hi[kk][i])));
+    }
+  }
+}
+
+// The three TF32 products of one K chunk against ws, its split W chunk (hi
+// then lo, MT x kBK each, in core-matrix order): step by step x_lo.w_hi and
+// x_hi.w_lo into acc_s and x_hi.w_hi into acc_b; returns when they are done.
+template <int MT>
+__device__ __forceinline__ void tc_chunk(float (&acc_s)[MT / 2],
+                                         float (&acc_b)[MT / 2],
+                                         const uint32_t (&hi)[kBK / 8][4],
+                                         const uint32_t (&lo)[kBK / 8][4],
+                                         const float* ws) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk) {
+    // B of step kk: core matrices ki = 2 kk, 2 kk + 1 of hi and of lo
+    const float* wk = ws + 2 * kk * (MT / 8) * 32;
+    const uint64_t dhi = kmajor_desc(wk, MT * 16, 128);
+    const uint64_t dlo = kmajor_desc(wk + MT * kBK, MT * 16, 128);
+    Wgmma<MT>::run(acc_s, lo[kk], dhi);
+    Wgmma<MT>::run(acc_s, hi[kk], dlo);
+    Wgmma<MT>::run(acc_b, hi[kk], dhi);
+  }
+  wg_commit();
+  wg_wait_all();
+  reg_fence(acc_s);
+  reg_fence(acc_b);
+}
+
 // Split W once into the scratch ws: for M chunk mc and K chunk kc, block
 // (mc * nk + kc) holds hi then lo, each MT x kBK in core-matrix order:
 // float (ki * (MT/8) + mi) * 32 + (m % 8) * 4 + k % 4 for m = mi*8 + m % 8,
@@ -317,9 +388,13 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b))
                : "memory");
 }
+// Waits for the phase of parity `parity` of b to complete.  A phase that
+// never completes (a lost copy or arrival) traps after about 10 s of
+// waiting, so the launch fails instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
   uint32_t done;
-  do {
+  uint64_t t0 = 0;
+  for (uint32_t spin = 0;; ++spin) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -327,7 +402,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
         : "=r"(done)
         : "r"(smem_addr(b)), "r"(parity)
         : "memory");
-  } while (!done);
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (spin == 0)
+        t0 = now;
+      else if (now - t0 > 10000000000ull)
+        __trap();
+    }
+  }
 }
 // the 128 threads of warpgroup wg (named barrier 1 + wg)
 __device__ __forceinline__ void wg_sync(int wg) {
@@ -477,33 +561,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int i = 0; i < MT / 2; ++i) acc_s[i] = acc_b[i] = 0.f;
     }
     const float* xs = smem + st * C::kStageFloats;
-    const float* ws = xs + C::kXFloats;
     uint32_t hi[kBK / 8][4], lo[kBK / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {
-      const float* xk = xs + (kk * 8 + kq) * kXS + crow;
-      const float v[4] = {xk[0], xk[8], xk[4 * kXS], xk[4 * kXS + 8]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        hi[kk][i] = tf32_rna(v[i]);
-        lo[kk][i] = tf32_rna(__fsub_rn(v[i], __uint_as_float(hi[kk][i])));
-      }
-    }
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {
-      // B of step kk: core matrices ki = 2 kk, 2 kk + 1 of hi and of lo
-      const float* wk = ws + 2 * kk * (MT / 8) * 32;
-      const uint64_t dhi = kmajor_desc(wk, MT * 16, 128);
-      const uint64_t dlo = kmajor_desc(wk + MT * kBK, MT * 16, 128);
-      Wgmma<MT>::run(acc_s, lo[kk], dhi);
-      Wgmma<MT>::run(acc_s, hi[kk], dlo);
-      Wgmma<MT>::run(acc_b, hi[kk], dhi);
-    }
-    wg_commit();
-    wg_wait_all();
-    reg_fence(acc_s);
-    reg_fence(acc_b);
+    split_frags([xs](int k, int c) { return xs[k * kXS + c]; }, crow, kq, hi,
+                lo);
+    tc_chunk<MT>(acc_s, acc_b, hi, lo, xs + C::kXFloats);
     wg_sync(wg);  // the warpgroup is done with the stage
     if ((t & 127) == 0) mbar_arrive(&empty[st]);
     if (u.kc == g.nk - 1) tc_store<MT>(g, stg, u.ct, u.mc, wg, acc_s, acc_b);
@@ -513,37 +574,36 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 int tc_rows(int M) { return M <= 64 ? 64 : 128; }
 
-// ---- K5b, K5c: FP32 FMAs -------------------------------------------------
+// ---- K5b: FP32 FMAs ------------------------------------------------------
+
+constexpr int kFoldCols = 2 * kBM;  // a tile's rows of both halves of W
 
 // Start the copies of K-chunk kc of tile (rt, ct) into one stage:
-// xs[kBK][kBN] and ws[kBK][WCOLS].
-template <int WCOLS, bool FOLD>
+// xs[kBK][kBN] and ws[kBK][kFoldCols], the tile's rows of W[:K] then W[K:].
 __device__ __forceinline__ void load_stage(const Args& g, float* xs, float* ws,
                                            int rt, long long ct, int kc) {
-  const int t0 = threadIdx.x;
-  load_x(g, xs, kBN, x_src(g, ct, g.vec_in ? (t0 & 31) * 4 : (t0 & (kBN - 1))),
-         kc);
   const int t = threadIdx.x;
+  load_x(g, xs, kBN, x_src(g, ct, g.vec_in ? (t & 31) * 4 : (t & (kBN - 1))),
+         kc);
   const int k0 = kc * kBK;
   const int r0 = rt * kBM;
 #pragma unroll
-  for (int i = 0; i < kBK * WCOLS / kThreads; ++i) {
+  for (int i = 0; i < kBK * kFoldCols / kThreads; ++i) {
     const int e = t + kThreads * i;
-    const int jj = e / WCOLS;
-    const int r = e - jj * WCOLS;
-    // the fold's second half reads the low rows W[K + r]
-    const int lo = FOLD && r >= kBM;
+    const int jj = e / kFoldCols;
+    const int r = e - jj * kFoldCols;
+    // the second half reads the low rows W[K + r]
+    const int lo = r >= kBM;
     const int rr = r0 + r - (lo ? kBM : 0);
     const int m = rr + (lo ? g.out_rows : 0);
     const bool ok = (rr < g.out_rows) && (k0 + jj < g.K);
     const float* src = ok ? g.wt + (long long)(k0 + jj) * g.M + m : g.wt;
-    cp4(ws + jj * WCOLS + r, src, ok);
+    cp4(ws + jj * kFoldCols + r, src, ok);
   }
 }
 
-// One K-chunk of multiply-adds on the register tile: rows ty*8 + i,
+// One K-chunk of multiply-adds on the two register tiles: rows ty*8 + i,
 // columns tx*4 + c.  j ascends with one fmaf per term.
-template <int WCOLS, bool FOLD>
 __device__ __forceinline__ void compute_stage(const float* xs, const float* ws,
                                               float (&acc)[8][4],
                                               float (&acc2)[8][4]) {
@@ -552,31 +612,25 @@ __device__ __forceinline__ void compute_stage(const float* xs, const float* ws,
   for (int jj = 0; jj < kBK; ++jj) {
     const float4 xv = *reinterpret_cast<const float4*>(xs + jj * kBN + tx * 4);
     const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-    const float4 w0 = *reinterpret_cast<const float4*>(ws + jj * WCOLS + ty * 8);
-    const float4 w1 =
-        *reinterpret_cast<const float4*>(ws + jj * WCOLS + ty * 8 + 4);
+    const float* wj = ws + jj * kFoldCols + ty * 8;
+    const float4 w0 = *reinterpret_cast<const float4*>(wj);
+    const float4 w1 = *reinterpret_cast<const float4*>(wj + 4);
+    const float4 v0 = *reinterpret_cast<const float4*>(wj + kBM);
+    const float4 v1 = *reinterpret_cast<const float4*>(wj + kBM + 4);
     const float wr[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float vr[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(wr[i], xr[c], acc[i][c]);
-    if (FOLD) {
-      const float4 v0 =
-          *reinterpret_cast<const float4*>(ws + jj * WCOLS + kBM + ty * 8);
-      const float4 v1 =
-          *reinterpret_cast<const float4*>(ws + jj * WCOLS + kBM + ty * 8 + 4);
-      const float vr[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc2[i][c] = fmaf(vr[i], xr[c], acc2[i][c]);
-    }
+      for (int c = 0; c < 4; ++c) {
+        acc[i][c] = fmaf(wr[i], xr[c], acc[i][c]);
+        acc2[i][c] = fmaf(vr[i], xr[c], acc2[i][c]);
+      }
   }
 }
 
-template <bool FOLD>
 __device__ __forceinline__ void store_tile(const Args& g, int rt, long long ct,
-                                           float (&acc)[8][4],
+                                           const float (&acc)[8][4],
                                            const float (&acc2)[8][4]) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const long long c = ct * kBN + tx * 4;
@@ -587,10 +641,8 @@ __device__ __forceinline__ void store_tile(const Args& g, int rt, long long ct,
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      // the fold rounds the product and the sum apart, as torch's
-      // hi + 1e-38 * lo does
-      v[k] = FOLD ? __fadd_rn(acc[i][k], __fmul_rn(1e-38f, acc2[i][k]))
-                  : acc[i][k];
+      // the product and the sum rounded apart, as torch's hi + 1e-38 * lo
+      v[k] = __fadd_rn(acc[i][k], __fmul_rn(1e-38f, acc2[i][k]));
     float* dst = g.out + (long long)r * g.N + c;
     if (g.vec_out && c + 3 < g.N) {
       *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
@@ -602,74 +654,281 @@ __device__ __forceinline__ void store_tile(const Args& g, int rt, long long ct,
   }
 }
 
-template <int WCOLS, bool FOLD>
-__global__ void __launch_bounds__(kThreads)
-    dot_tile_kernel(const Args g) {
+__global__ void __launch_bounds__(kThreads) dot_fold_kernel(const Args g) {
   __shared__ __align__(16) float xs[kBK * kBN];
-  __shared__ __align__(16) float ws[kBK * WCOLS];
+  __shared__ __align__(16) float ws[kBK * kFoldCols];
   float acc[8][4] = {}, acc2[8][4] = {};
   const long long ct = blockIdx.x;
   const int rt = blockIdx.y;
   for (int kc = 0; kc < g.nk; ++kc) {
-    load_stage<WCOLS, FOLD>(g, xs, ws, rt, ct, kc);
+    load_stage(g, xs, ws, rt, ct, kc);
     cp_commit();
     cp_wait<0>();
     __syncthreads();
-    compute_stage<WCOLS, FOLD>(xs, ws, acc, acc2);
+    compute_stage(xs, ws, acc, acc2);
     __syncthreads();
   }
-  store_tile<FOLD>(g, rt, ct, acc, acc2);
+  store_tile(g, rt, ct, acc, acc2);
 }
 
-constexpr int kStageFloats = kBK * kBN + kBK * kBM;
-constexpr size_t kDmaSmem = 2 * kStageFloats * sizeof(float);
+// ---- K5c: W resident, X by TMA, output by TMA ----------------------------
 
-// Persistent blocks; tile id = ct * row_tiles + rt, block b takes ids
-// b, b + gridDim.x, ...; step s is chunk s % nk of the block's (s / nk)-th
-// tile, and stage s & 1 of the ring holds it.
-__device__ __forceinline__ void step_tile(const Args& g, long long s,
-                                          int& rt, long long& ct, int& kc) {
-  const long long id = blockIdx.x + (s / g.nk) * gridDim.x;
-  kc = (int)(s % g.nk);
-  ct = id / g.row_tiles;
-  rt = (int)(id - ct * g.row_tiles);
+constexpr int kDmaRows = 64;          // W rows a CTA holds (wgmma m64n64k8)
+constexpr int kDmaMaxGroup = 8;       // CTAs of a group: M <= 512
+constexpr int kDmaMaxChunks = 8;      // resident K chunks: K <= 256
+constexpr int kDmaStages = 4;
+constexpr int kSub = 32;              // columns of a swizzled sub-tile (128 B)
+constexpr int kChunkFloats = 4096;    // an X stage, a W chunk, a staging block
+constexpr int kDmaBytes = kChunkFloats * 4;
+
+size_t dma_smem(int nk) {
+  return 1024 + (size_t)(kDmaStages + 2 + nk) * kDmaBytes +
+         (2 * kDmaStages + 1) * sizeof(uint64_t);
 }
 
-__global__ void __launch_bounds__(kThreads) dot_dma_kernel(const Args g) {
-  extern __shared__ __align__(128) float smem[];
-  const long long tiles = (long long)g.col_tiles * g.row_tiles;
-  if ((long long)blockIdx.x >= tiles) return;
-  const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
-  const long long steps = mine * g.nk;
-  float acc[8][4] = {}, acc2[8][4] = {};
-  int rt, kc;
-  long long ct;
+// Float (row, col) of a [rows][32] sub-tile under the TMA's 128-byte swizzle
+// (CU_TENSOR_MAP_SWIZZLE_128B on a 1024-byte aligned base): the 16-byte
+// chunk col / 4 of each 128-byte row is exchanged with chunk col / 4 ^ row % 8.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kSub + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
+}
 
-  step_tile(g, 0, rt, ct, kc);
-  load_stage<kBM, false>(g, smem, smem + kBK * kBN, rt, ct, kc);
-  cp_commit();
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+// bytes of global memory into this CTA's shared memory (1-D bulk copy)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// One TMA tile of X at coordinates c (rank 2: c0, c1; rank 3: c0, c1, c2)
+// into dst, completing its bytes on the mbarrier bar.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         int rank, int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  const uint32_t d = smem_addr(dst), b = smem_addr(bar);
+  if (rank == 2)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(d),
+        "l"(m), "r"(c0), "r"(c1), "r"(b)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(d),
+        "l"(m), "r"(c0), "r"(c1), "r"(c2), "r"(b)
+        : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const float* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_addr(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+struct Dma {
+  Args g;
+  int cs;         // CTAs a group: W's 64-row chunks
+  int xrank;      // X's tensor map rank (2 or 3), or 0: the cp.async producer
+  int tma_out;    // the output's rows are 16-byte multiples: TMA stores
+};
+
+// The producer warpgroup: the W chunk of this CTA once, then stage after
+// stage of X, each once both consumer warpgroups have released it.  TMA:
+// one thread expects the stage's 16 KB and issues its four sub-tiles.
+// cp.async: every thread copies one column of the tile, zero-filled past
+// the edges, into the same swizzled layout, for its own CTA.
+__device__ __forceinline__ void dma_produce(
+    const Dma& d, const CUtensorMap* xmap, const float* wsplit, float* xst,
+    float* wres, uint64_t* full, uint64_t* empty, uint64_t* wbar,
+    long long first, long long stride, long long steps) {
+  const Args& g = d.g;
+  const int t = threadIdx.x & 127;
+  const int rank = (int)(blockIdx.x % d.cs);
+  if (t == 0) {
+    mbar_expect_tx(wbar, (uint32_t)(g.nk * kDmaBytes));
+    for (int kc = 0; kc < g.nk; ++kc)
+      bulk_load(wres + kc * kChunkFloats,
+                wsplit + ((long long)rank * g.nk + kc) * kChunkFloats,
+                kDmaBytes, wbar);
+  }
+  if (d.xrank == 0) {
+    long long ct = first;
+    XSrc x = x_src(g, ct, t);
+    float* col = xst + (t >> 5) * kSub * kBK;
+    int kc = 0;
+    for (long long s = 0; s < steps; ++s) {
+      const int st = (int)(s % kDmaStages);
+      if (s >= kDmaStages)
+        mbar_wait(&empty[st], (uint32_t)((s / kDmaStages - 1) & 1));
+      float* xs = col + st * kChunkFloats;
+      const int k0 = kc * kBK;
+#pragma unroll 8
+      for (int j = 0; j < kBK; ++j) {
+        const bool ok = x.ok && k0 + j < g.K;
+        cp4(xs + swz(j, t & 31), ok ? x.p + (long long)(k0 + j) * g.sK : g.a,
+            ok);
+      }
+      mbar_arrive_copies(&full[st]);
+      if (++kc == g.nk) {
+        kc = 0;
+        ct += stride;
+        x = x_src(g, ct, t);
+      }
+    }
+    cp_wait<0>();
+    return;
+  }
+  if (t != 0) return;
+  long long ct = first;
+  int kc = 0;
   for (long long s = 0; s < steps; ++s) {
-    float* xs = smem + (s & 1) * kStageFloats;
-    if (s + 1 < steps) {
-      float* xn = smem + ((s + 1) & 1) * kStageFloats;
-      step_tile(g, s + 1, rt, ct, kc);
-      load_stage<kBM, false>(g, xn, xn + kBK * kBN, rt, ct, kc);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+    const int st = (int)(s % kDmaStages);
+    if (s >= kDmaStages)
+      mbar_wait(&empty[st], (uint32_t)((s / kDmaStages - 1) & 1));
+    mbar_expect_tx(&full[st], kDmaBytes);
+    for (int sub = 0; sub < kBN / kSub; ++sub) {
+      const long long c = ct * kBN + sub * kSub;
+      const long long p = d.xrank == 3 ? c / g.Q : 0;
+      tma_load(xst + st * kChunkFloats + sub * kSub * kBK, xmap, d.xrank,
+               (int)(c - p * g.Q), kc * kBK, (int)p, &full[st]);
     }
-    __syncthreads();
-    step_tile(g, s, rt, ct, kc);
-    compute_stage<kBM, false>(xs, xs + kBK * kBN, acc, acc2);
-    if (kc == g.nk - 1) {
-      store_tile<false>(g, rt, ct, acc, acc2);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    if (++kc == g.nk) {
+      kc = 0;
+      ct += stride;
     }
-    __syncthreads();
+  }
+}
+
+// Warpgroup wg writes its 64 columns x 64 rows of tile ct through its
+// swizzled staging buffer stg: by TMA where the output allows, else as
+// scalar rows.  The previous store has finished reading stg first.
+__device__ __forceinline__ void dma_store(const Dma& d,
+                                          const CUtensorMap* omap, float* stg,
+                                          long long ct, int mc, int wg,
+                                          const float (&acc_s)[32],
+                                          const float (&acc_b)[32]) {
+  const Args& g = d.g;
+  const int tw = threadIdx.x & 127, lane = tw & 31;
+  if (d.tma_out && tw == 0) tma_store_read_wait();
+  wg_sync(wg);
+  const int c0 = 16 * (tw >> 5) + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = c0 + 8 * ((i >> 1) & 1);
+    const int m = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    stg[(c >> 5) * kSub * kDmaRows + swz(m, c & 31)] =
+        __fadd_rn(acc_s[i], acc_b[i]);
+  }
+  const long long col = ct * kBN + 64 * wg;
+  if (d.tma_out) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(wg);
+    if (tw == 0)
+      for (int h = 0; h < 2; ++h)
+        tma_store(omap, stg + h * kSub * kDmaRows, (int)(col + h * kSub),
+                  mc * kDmaRows);
+    return;
+  }
+  wg_sync(wg);
+  const int rows = min(kDmaRows, g.M - mc * kDmaRows);
+  const int c = tw & 63;
+  if (col + c < g.N)
+    for (int m = tw >> 6; m < rows; m += 2)
+      g.out[(long long)(mc * kDmaRows + m) * g.N + col + c] =
+          stg[(c >> 5) * kSub * kDmaRows + swz(m, c & 31)];
+}
+
+// Groups of d.cs neighbouring CTAs walk the 128-column tiles (group i takes
+// tiles i, i + groups, ...); CTA `rank` of a group computes W rows
+// 64 rank .. 64 rank + 63 of each.  Two consumer warpgroups (64 columns
+// each) and a producer warpgroup, as K5a.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dot_dma_kernel(const Dma d, const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const float* __restrict__ wsplit) {
+  extern __shared__ unsigned char dsmem[];
+  float* smem = reinterpret_cast<float*>(
+      dsmem + ((1024 - (smem_addr(dsmem) & 1023)) & 1023));
+  const Args& g = d.g;
+  float* xst = smem;                                    // X stages
+  float* stg_all = xst + kDmaStages * kChunkFloats;     // output staging
+  float* wres = stg_all + 2 * kChunkFloats;             // resident W
+  uint64_t* full = reinterpret_cast<uint64_t*>(wres + g.nk * kChunkFloats);
+  uint64_t* empty = full + kDmaStages;
+  uint64_t* wbar = empty + kDmaStages;
+  const long long first = blockIdx.x / d.cs, stride = gridDim.x / d.cs;
+  const long long steps =
+      first < g.col_tiles ? ((g.col_tiles - 1 - first) / stride + 1) * g.nk
+                          : 0;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t == 0) {
+    for (int i = 0; i < kDmaStages; ++i) {
+      mbar_init(&full[i], d.xrank ? 1 : 128);
+      mbar_init(&empty[i], 2);  // the two warpgroups
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    dma_produce(d, &xmap, wsplit, xst, wres, full, empty, wbar, first,
+                stride, steps);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2, tw = t & 127;
+    const int mc = (int)(blockIdx.x % d.cs);
+    float* stg = stg_all + wg * kChunkFloats;
+    const int crow = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const int kq = lane & 3;
+    mbar_wait(wbar, 0);
+    long long ct = first;
+    int kc = 0;
+    float acc_s[32], acc_b[32];
+    for (long long s = 0; s < steps; ++s) {
+      const int st = (int)(s % kDmaStages);
+      mbar_wait(&full[st], (uint32_t)((s / kDmaStages) & 1));
+      if (kc == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc_s[i] = acc_b[i] = 0.f;
+      }
+      const float* xs = xst + st * kChunkFloats;
+      uint32_t hi[kBK / 8][4], lo[kBK / 8][4];
+      split_frags(
+          [xs](int k, int c) {
+            return xs[(c >> 5) * kSub * kBK + swz(k, c & 31)];
+          },
+          crow, kq, hi, lo);
+      // the stage is in registers: release it before the products
+      wg_sync(wg);
+      if (tw == 0) mbar_arrive(&empty[st]);
+      tc_chunk<kDmaRows>(acc_s, acc_b, hi, lo, wres + kc * kChunkFloats);
+      if (kc == g.nk - 1) dma_store(d, &omap, stg, ct, mc, wg, acc_s, acc_b);
+      if (++kc == g.nk) {
+        kc = 0;
+        ct += stride;
+      }
+    }
+    if (d.tma_out && tw == 0) tma_store_wait();
   }
 }
 
@@ -740,6 +999,36 @@ int launch_tc(const Args& g, float* ws, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query, so the library needs no link to libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return (int)cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
 }  // namespace
 
 // Floats of scratch that dot_f32 needs for W(M, K) split into hi and lo.
@@ -776,26 +1065,85 @@ extern "C" int dot_fold_f32(const void* wt, const void* a, void* out, int M,
   if (err) return err;
   if (g.N == 0) return 0;
   if (g.row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  dot_tile_kernel<2 * kBM, true>
-      <<<dim3(g.col_tiles, g.row_tiles), kThreads, 0, (cudaStream_t)stream>>>(
-          g);
+  dot_fold_kernel<<<dim3(g.col_tiles, g.row_tiles), kThreads, 0,
+                    (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 
-// dot_f32's function in FP32 FMAs, on persistent blocks with a two-stage
-// copy ring.
+// Floats of scratch that dot_dma_f32 needs: W(M, K) split into hi and lo
+// in 64-row chunks.
+extern "C" long long dot_dma_f32_scratch(int M, int K) {
+  if (M < 1 || K < 1) return 0;
+  return (long long)((M + kDmaRows - 1) / kDmaRows) * ((K + kBK - 1) / kBK) *
+         kChunkFloats;
+}
+
+// dot_f32's function (K5c), W resident in a group's shared memory: M <=
+// 512, K <= 256.  xrank 2 or 3: X is read by TMA through the tensor map of
+// that rank with dims xdims (elements, innermost first), byte strides
+// xstrides (xrank - 1 of them) and box xbox, from `a`; xrank 0: by cp.async
+// through the strides.  scratch: dot_dma_f32_scratch(M, K) floats.
+// Returns the cudaError_t of the launches, or 1000 + the CUresult of a
+// failed tensor-map encoding.
 extern "C" int dot_dma_f32(const void* wt, const void* a, void* out, int M,
                            int K, long long P, long long Q, long long sP,
-                           long long sK, long long sQ, void* stream) {
-  Args g;
-  int err = make_args(g, wt, a, out, M, K, M, P, Q, sP, sK, sQ);
+                           long long sK, long long sQ, int xrank,
+                           const unsigned long long* xdims,
+                           const unsigned long long* xstrides,
+                           const unsigned* xbox, void* scratch, void* stream) {
+  Dma d;
+  int err = make_args(d.g, wt, a, out, M, K, M, P, Q, sP, sK, sQ);
   if (err) return err;
-  if (g.N == 0) return 0;
+  if (d.g.N == 0) return 0;
+  d.cs = (M + kDmaRows - 1) / kDmaRows;
+  if (d.cs > kDmaMaxGroup || d.g.nk > kDmaMaxChunks ||
+      !(xrank == 0 || xrank == 2 || xrank == 3) ||
+      ((uintptr_t)scratch & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  d.xrank = xrank;
+  d.tma_out = d.g.vec_out && d.g.N < 0x7fffffffLL;
+  EncodeTiled encode = nullptr;
+  if (xrank || d.tma_out) {
+    err = encode_tiled(&encode);
+    if (err) return err;
+  }
+  CUtensorMap xmap = {}, omap = {};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  if (xrank) {
+    const cuuint64_t dims[3] = {xdims[0], xdims[1], xrank == 3 ? xdims[2] : 1};
+    const cuuint64_t strides[2] = {xstrides[0], xrank == 3 ? xstrides[1] : 0};
+    const cuuint32_t box[3] = {xbox[0], xbox[1], xrank == 3 ? xbox[2] : 1};
+    const CUresult r = encode(
+        &xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)xrank,
+        const_cast<void*>(a), dims, strides, box, ones,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  }
+  if (d.tma_out) {
+    const cuuint64_t dims[2] = {(cuuint64_t)d.g.N, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)d.g.N * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)kSub, (cuuint32_t)kDmaRows};
+    const CUresult r = encode(
+        &omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, dims, strides, box,
+        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  float* ws = (float*)scratch;
+  const long long total = dot_dma_f32_scratch(M, K);
+  split_w_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      d.g.wt, ws, M, K, kDmaRows, d.g.nk, total);
+  err = (int)cudaGetLastError();
+  if (err) return err;
   long long blocks = 0;
-  err = persistent_blocks(dot_dma_kernel, kThreads, kDmaSmem,
-                          (long long)g.col_tiles * g.row_tiles, blocks);
+  err = persistent_blocks(dot_dma_kernel, kTcThreads, dma_smem(d.g.nk),
+                          (long long)d.g.col_tiles * d.cs, blocks);
   if (err) return err;
-  dot_dma_kernel<<<(unsigned)blocks, kThreads, kDmaSmem,
-                   (cudaStream_t)stream>>>(g);
+  blocks -= blocks % d.cs;  // whole groups
+  if (blocks < d.cs) return (int)cudaErrorInvalidConfiguration;
+  dot_dma_kernel<<<(unsigned)blocks, kTcThreads, dma_smem(d.g.nk), st>>>(
+      d, xmap, omap, (const float*)ws);
   return (int)cudaGetLastError();
 }

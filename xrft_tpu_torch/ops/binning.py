@@ -4,7 +4,8 @@ Counterpart of ``xrft_tpu/ops/binning.py``.  The bin of each point depends
 only on the static frequency grid, so it is computed once on the host:
 :func:`cut_codes` reproduces ``pd.cut``'s equal-width, right-closed codes in
 numpy alone (code -1: out of range or NaN), and a :class:`BinPlan` holds the
-codes with their sorted plan and its device copies.
+codes with K3's tile plan, the plain route's sorted plan and their device
+copies.
 
 :func:`binned_sum` launches kernel K3 for a CUDA tensor and runs
 :func:`binned_sum_plain`, the JAX package's non-TPU route in torch, for a CPU
@@ -12,6 +13,13 @@ tensor; any other device raises.  The plain version takes the one-hot matmul
 for small grids and the sorted gather with a blocked prefix difference for
 large ones; it uses no ``index_add_``/``scatter_add_``, so it repeats bit
 for bit on the card as well.
+
+K3 streams the data in natural order, as the TPU kernel did: the points are
+cut into tiles of ``TILE`` consecutive points, and each tile's plan is the
+stable sort of its codes as 16-bit offsets into the tile (dropped points
+left out), cut into runs of one bin.  Pass 1 sums each run out of the tile
+in shared memory into its partial slot; pass 2 adds each bin's slots, which
+lie side by side in tile order (:meth:`BinPlan.host`).
 """
 
 from __future__ import annotations
@@ -29,12 +37,18 @@ __all__ = ["BinPlan", "binned_mean_np", "binned_sum", "binned_sum_plain",
 # above this many one-hot entries (points * bins) the plain version takes the
 # sorted route, as ``xrft_tpu/ops/binning.py:63`` does
 ONEHOT_MAX_ELEMENTS = 64 * 1024 * 1024
-# points of one bin that one K3 block reduces; longer bins are split into
-# chunks of this size whose partial sums a second pass adds in order
-CHUNK = 4096
-# rows one K3 block reduces together, reading the plan once for all of them
-# (``csrc/binned_sum.cu``'s RB)
-ROWS_PER_BLOCK = 8
+# consecutive points of one K3 tile: a power of two, at most 65536 so that
+# an offset into the tile fits 16 bits; one component of a tile (64 KB of
+# float32, 128 KB of float64) fills a block's shared memory
+# (``csrc/binned_sum.cu`` has the arithmetic)
+TILE = 16384
+# the most points of one K3 run (one thread's serial sum); a bin's stretch
+# of a tile that is longer is cut into several runs
+RUN_MAX = 128
+# pass-1 blocks K3 aims to launch: the rows are cut into groups, a block to
+# each (tile, group), so that there are about this many; a block reads its
+# tile's offsets once for its whole group (``csrc/binned_sum.cu``)
+TARGET_BLOCKS = 1024
 _ENTRY = {torch.float32: "binned_sum_f32", torch.float64: "binned_sum_f64"}
 
 
@@ -105,30 +119,66 @@ def _sorted_plan(codes: np.ndarray, nbins: int):
     return order, starts, ends
 
 
-def _chunk_table(starts: np.ndarray, ends: np.ndarray, chunk: int):
-    """K3's work split: chunk k reduces sorted positions
-    ``[chunk_off[k], chunk_off[k+1])``, all of one bin and at most ``chunk``
-    long; bin b owns chunks ``[bin_chunk[b], bin_chunk[b+1])``."""
-    nch = -(-(ends - starts) // chunk)
-    bin_chunk = np.concatenate([[0], np.cumsum(nch)])
-    first = np.repeat(bin_chunk[:-1], nch)
-    chunk_start = np.repeat(starts, nch) + chunk * (np.arange(first.size)
-                                                    - first)
-    chunk_off = np.concatenate([chunk_start, ends[-1:]])
-    return chunk_off.astype(np.int32), bin_chunk.astype(np.int32)
+def _tile_plan(codes: np.ndarray, nbins: int, tile: int) -> dict:
+    """K3's plan: each tile's kept points in the stable order of their
+    codes (a radix argsort of the tile's pandas-width codes, which stays in
+    cache); the runs of one bin in that order, cut at ``RUN_MAX`` points;
+    each run's partial slot, bin-major and in tile order within a bin, so
+    that a bin's slots are ``bin_off[b]:bin_off[b+1]``."""
+    if not 1 <= tile <= 65536:
+        raise ValueError(f"K3's tile of {tile} points does not fit 16 bits")
+    ntiles = -(-codes.size // tile)
+    local, starts, bins, nruns = [], [], [], np.zeros(ntiles, np.int64)
+    pos = 0
+    for t in range(ntiles):
+        seg = codes[t * tile:(t + 1) * tile]
+        o = np.argsort(seg, kind="stable")
+        s = seg[o]
+        first = int(np.searchsorted(s, 0))      # code -1 sorts first
+        if first == s.size:
+            continue
+        o, s = o[first:], s[first:]
+        head = np.flatnonzero(np.concatenate([[True], s[1:] != s[:-1]]))
+        local.append(o.astype(np.uint16))
+        starts.append(head + pos)
+        bins.append(s[head])
+        nruns[t] = head.size
+        pos += s.size
+    if not starts:
+        starts, bins, local = [[np.zeros(0, np.int64)]] * 3
+    start, run_bin = np.concatenate(starts), np.concatenate(bins)
+    run_tile = np.repeat(np.arange(ntiles), nruns)
+    # cut runs longer than RUN_MAX into pieces of RUN_MAX
+    pieces = -(-np.diff(np.append(start, pos)) // RUN_MAX)
+    within = np.arange(pieces.sum()) - np.repeat(np.cumsum(pieces) - pieces,
+                                                 pieces)
+    start = np.repeat(start, pieces) + within * RUN_MAX
+    run_bin, run_tile = np.repeat(run_bin, pieces), np.repeat(run_tile, pieces)
+    by_bin = np.argsort(run_bin, kind="stable")
+    run_slot = np.empty(run_bin.size, np.int64)
+    run_slot[by_bin] = np.arange(run_bin.size)
+    i32 = np.int32
+    return {"local": np.concatenate(local).astype(np.uint16),
+            "run_start": np.append(start, pos).astype(i32),
+            "run_slot": run_slot.astype(i32),
+            "tile_run": np.searchsorted(run_tile,
+                                        np.arange(ntiles + 1)).astype(i32),
+            "bin_off": np.searchsorted(run_bin[by_bin],
+                                       np.arange(nbins + 1)).astype(i32),
+            "tile": tile}
 
 
 class BinPlan:
     """The static binning of ``size`` points into ``nbins`` bins: the codes,
-    their sorted plan and K3's chunk table (host, built at first use), and
-    the copies of those on each device they were used on."""
+    K3's tile plan and the plain route's sorted plan (host, each built at
+    first use), and the copies of those on each device they were used on."""
 
     def __init__(self, codes: np.ndarray, nbins: int):
         self.codes = np.ravel(codes)
         self.nbins = int(nbins)
         if self.codes.size >= 2 ** 31:
             raise ValueError(f"{self.codes.size} points exceed int32 indices")
-        self._host = None
+        self._host = {}
         self._dev = {}
 
     @property
@@ -136,25 +186,36 @@ class BinPlan:
         return self.codes.size
 
     def host(self) -> dict:
-        """order (int32), starts/ends (int64), chunk_off/bin_chunk (int32)."""
-        if self._host is None:
-            order, starts, ends = _sorted_plan(self.codes, self.nbins)
-            chunk_off, bin_chunk = _chunk_table(starts, ends, CHUNK)
-            self._host = {"order": order.astype(np.int32), "starts": starts,
-                          "ends": ends, "chunk_off": chunk_off,
-                          "bin_chunk": bin_chunk}
-        return self._host
+        """K3's tile plan of ``TILE`` points a tile: local (uint16 offsets
+        into their tile, the kept points in (tile, code) order), run_start
+        (int32, each run's first entry of local, and the end), run_slot
+        (int32), tile_run (int32, each tile's first run, and the end),
+        bin_off (int32, each bin's first slot, and the end), tile."""
+        if "tiles" not in self._host:
+            self._host["tiles"] = _tile_plan(self.codes, self.nbins, TILE)
+        return self._host["tiles"]
 
-    def on(self, device) -> dict:
-        """The host plan as tensors on ``device``, copied there once."""
+    def sorted_host(self) -> dict:
+        """The plain route's plan: order (int32, the stable argsort of the
+        codes), starts/ends (int64, each bin's segment of it)."""
+        if "sorted" not in self._host:
+            order, starts, ends = _sorted_plan(self.codes, self.nbins)
+            self._host["sorted"] = {"order": order.astype(np.int32),
+                                    "starts": starts, "ends": ends}
+        return self._host["sorted"]
+
+    def on(self, device, part: str = "tiles") -> dict:
+        """The host plan ``part`` ("tiles": :meth:`host`, "sorted":
+        :meth:`sorted_host`) as tensors on ``device``, copied there once."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        got = self._dev.get(device)
+        got = self._dev.get((device, part))
         if got is None:
+            host = self.host() if part == "tiles" else self.sorted_host()
             got = {k: torch.as_tensor(v, device=device)
-                   for k, v in self.host().items()}
-            self._dev[device] = got
+                   for k, v in host.items() if isinstance(v, np.ndarray)}
+            self._dev[device, part] = got
         return got
 
 
@@ -177,7 +238,7 @@ def _plain_real(x: torch.Tensor, plan: BinPlan) -> torch.Tensor:
         with full_fp32():
             return x @ torch.as_tensor(_onehot(plan.codes, nbins, rdtype),
                                        device=dev)
-    t = plan.on(dev)
+    t = plan.on(dev, "sorted")
     # pairwise-accuracy prefix: blocked two-level cumsum.  The JAX package
     # runs it in float32 for every dtype; here float64 data stay float64
     # (ROADMAP.md, Queue 3)
@@ -224,30 +285,36 @@ def binned_sum(x: torch.Tensor, plan: BinPlan) -> torch.Tensor:
     xr = torch.view_as_real(x.resolve_conj()) if x.is_complex() else x
     comps = 2 if x.is_complex() else 1
     rows = x.numel() // plan.size if plan.size else 0
-    groups = -(-rows // ROWS_PER_BLOCK)
-    if groups >= 2 ** 16:
-        raise ValueError(f"{rows} rows exceed the kernel's grid")
     out = torch.empty(x.shape[:-1] + (plan.nbins,), dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
+    h = plan.host()
+    ntiles = h["tile_run"].size - 1
+    # rows a pass-1 block sums, reusing its tile's offsets: as many as keep
+    # about TARGET_BLOCKS blocks
+    group = min(rows, max(1, rows * ntiles // TARGET_BLOCKS))
+    if ntiles >= 2 ** 31 or -(-rows // group) > 65535:
+        raise ValueError(f"{rows} rows of {ntiles} tiles exceed the kernel's "
+                         f"grid")
     from ._build import load
 
     with torch.cuda.device(x.device):
         t = plan.on(x.device)
-        nchunks = t["chunk_off"].numel() - 1
-        partial = torch.empty((rows, max(nchunks, 1), comps), dtype=xr.dtype,
+        nslots = t["run_slot"].numel()
+        partial = torch.empty((rows, max(nslots, 1), comps), dtype=xr.dtype,
                               device=x.device)
         fn = getattr(load("binned_sum"), _ENTRY[xr.dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(xr.data_ptr(), comps, t["order"].data_ptr(),
-                 t["chunk_off"].data_ptr(), t["bin_chunk"].data_ptr(),
+        err = fn(xr.data_ptr(), comps, t["local"].data_ptr(),
+                 t["run_start"].data_ptr(), t["run_slot"].data_ptr(),
+                 t["tile_run"].data_ptr(), t["bin_off"].data_ptr(),
                  partial.data_ptr(), out.data_ptr(), rows, plan.size,
-                 nchunks, plan.nbins, torch.cuda.current_stream().cuda_stream)
+                 ntiles, nslots, plan.nbins, h["tile"], group,
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"binned_sum kernel launch failed: CUDA error {err}")
     binned_sum.launches += 1

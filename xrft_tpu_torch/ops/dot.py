@@ -5,8 +5,11 @@ Counterpart of ``xrft_tpu/ops/pallas_dot.py``: :func:`pack_block_diag`, K5a
 :func:`dot` (``make_dot_kernel``), K5b :func:`dot_fold`
 (``make_dot_fold_kernel``) and K5c :func:`dot_dma` (``make_dot_kernel_dma``),
 each at full float32 grade, as the TPU kernels run at ``Precision.HIGHEST``.
-K5a runs on the tensor cores in 3xTF32 (:func:`dot_replay` repeats its
-arithmetic on the host, for the tests); K5b and K5c run FP32 FMAs.
+K5a and K5c run on the tensor cores in 3xTF32 (:func:`dot_replay` repeats
+their arithmetic on the host, for the tests); K5b runs FP32 FMAs.  K5c keeps
+W resident in the shared memory of a group of CTAs (so ``M <= 512`` and
+``K <= 256``) and reads X by TMA where :func:`dma_tensor_map` finds a tensor
+map for it, by cp.async otherwise.
 
 ``x`` is the product's right operand: a (K, N) matrix, or a (P, K, Q) array
 read as ``X[j, p*Q + q] = x[p, j, q]`` through its strides, so an axis in the
@@ -28,7 +31,16 @@ import torch
 from ..config import full_fp32
 
 __all__ = ["pack_block_diag", "dot", "dot_fold", "dot_dma", "dot_plain",
-           "dot_fold_plain", "dot_dma_plain", "tf32_rna", "dot_replay"]
+           "dot_fold_plain", "dot_dma_plain", "tf32_rna", "dot_replay",
+           "dma_tensor_map"]
+
+# K5c's contract: W's rows held by one group of CTAs of 64 rows, its K
+# chunks of 32 resident (``csrc/dot.cu``'s kDmaMaxGroup, kDmaMaxChunks)
+DMA_MAX_M, DMA_MAX_K = 8 * 64, 8 * 32
+# K5c's X box: 32 columns (128 bytes, the TMA's swizzle span) x 32 of K; a
+# stage of a 128-column tile is four of them
+DMA_BOX = (32, 32)
+DMA_TILE_COLS = 128
 
 
 def pack_block_diag(w2: torch.Tensor, groups: int) -> torch.Tensor:
@@ -100,8 +112,9 @@ def tf32_rna(v: torch.Tensor) -> torch.Tensor:
 
 
 def dot_replay(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K5a's arithmetic on the host (for the tests; the card's kernel is
-    :func:`dot`): each operand split into ``hi = tf32_rna(v)`` and
+    """K5a's and K5c's arithmetic on the host (for the tests; the card's
+    kernels are :func:`dot` and :func:`dot_dma`, which share its device
+    functions ``split_frags`` and ``tc_chunk``): each operand split into ``hi = tf32_rna(v)`` and
     ``lo = tf32_rna(v - hi)``, the small products ``x_lo w_hi`` and
     ``x_hi w_lo`` summed into one float32 accumulator and ``x_hi w_hi`` into
     another, 8-deep step by step (each product exact in float32, the sums
@@ -124,6 +137,32 @@ def dot_replay(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         for k in ks:
             big += whi[:, k, None] * xhi[None, k]
     return small + big
+
+
+def dma_tensor_map(x: torch.Tensor):
+    """K5c's X producer for ``x`` ((K, N), or (P, K, Q) read through its
+    strides): the TMA tensor map as {"rank", "dims" (elements, innermost
+    first), "strides" (bytes, rank - 1 of them), "box"}, or None where the
+    TMA cannot describe the layout and a cp.async producer copies X.
+
+    The TMA needs a 16-byte aligned base, strides that are 16-byte
+    multiples, a contiguous innermost axis and int32 coordinates.  A
+    (K, N) operand (P == 1) is a 2-D map (n, j); a (P, K, Q) one is a 3-D
+    map (q, j, p) whose Q is a multiple of 32, so that each 32-column box of
+    a tile lies within one p."""
+    x3 = _as3(x)
+    P, K, Q = x3.shape
+    sP, sK, sQ = x3.stride()
+    if x3.data_ptr() % 16 or Q < DMA_BOX[0] or (sQ != 1 and Q > 1) \
+            or sK * 4 % 16 or P * Q >= 2 ** 31 or K >= 2 ** 31:
+        return None
+    if P == 1:
+        return {"rank": 2, "dims": (Q, K), "strides": (sK * 4,),
+                "box": DMA_BOX}
+    if Q % DMA_BOX[0] or sP * 4 % 16:
+        return None
+    return {"rank": 3, "dims": (Q, K, P), "strides": (sK * 4, sP * 4),
+            "box": DMA_BOX + (1,)}
 
 
 def _launch(symbol: str, w: torch.Tensor, x3: torch.Tensor,
@@ -151,12 +190,22 @@ def _launch(symbol: str, w: torch.Tensor, x3: torch.Tensor,
             sP = 0  # one block of columns: its stride is never used
         args = [wt.data_ptr(), x3.data_ptr(), out.data_ptr(), w.shape[0], K,
                 P, Q, sP, sK, sQ]
-        if symbol == "dot_f32":
-            # K5a's scratch: W split into TF32 hi and lo, in its tile order
-            lib.dot_f32_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.dot_f32_scratch.restype = ctypes.c_longlong
-            scratch = torch.empty(lib.dot_f32_scratch(w.shape[0], K),
-                                  dtype=torch.float32, device=x3.device)
+        if symbol == "dot_dma_f32":
+            # K5c's X producer: a TMA tensor map, or rank 0 (cp.async)
+            tm = dma_tensor_map(x3) or {"rank": 0, "dims": (0, 0, 0),
+                                        "strides": (0, 0), "box": (0, 0, 0)}
+            u64, u32 = ctypes.c_ulonglong, ctypes.c_uint
+            argtypes += [ctypes.c_int, ctypes.POINTER(u64),
+                         ctypes.POINTER(u64), ctypes.POINTER(u32)]
+            args += [tm["rank"], (u64 * 3)(*tm["dims"]),
+                     (u64 * 2)(*tm["strides"]), (u32 * 3)(*tm["box"])]
+        if symbol in ("dot_f32", "dot_dma_f32"):
+            # scratch: W split into TF32 hi and lo, in the kernel's order
+            size = getattr(lib, symbol.replace("_f32", "_f32_scratch"))
+            size.argtypes = [ctypes.c_int, ctypes.c_int]
+            size.restype = ctypes.c_longlong
+            scratch = torch.empty(size(w.shape[0], K), dtype=torch.float32,
+                                  device=x3.device)
             argtypes.append(ctypes.c_void_p)
             args.append(scratch.data_ptr())
         fn.argtypes = argtypes + [ctypes.c_void_p]
@@ -192,10 +241,14 @@ def dot_fold(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def dot_dma(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K5c: K5a's function in FP32 FMAs, on persistent blocks with a
-    two-stage copy ring; within 1e-6 of max of its plain version, and its
-    repeats bit-identical."""
+    """K5c: K5a's function and 3xTF32 arithmetic with the copies explicit:
+    W resident in shared memory (``M <= 512``, ``K <= 256``), X in by TMA
+    or cp.async, the output out by TMA; within
+    1e-6 of max of its plain version, and its repeats bit-identical."""
     x3 = _check(w, x)
+    if w.shape[0] > DMA_MAX_M or w.shape[1] > DMA_MAX_K:
+        raise ValueError(f"dot_dma keeps W resident: M <= {DMA_MAX_M} and "
+                         f"K <= {DMA_MAX_K}, got {tuple(w.shape)}")
     if x3.device.type == "cpu":
         return dot_dma_plain(w, x)
     out = _launch("dot_dma_f32", w, x3, w.shape[0])

@@ -3,14 +3,19 @@
 Counterpart of ``xrft_tpu/padding.py``: the data are padded with numpy's
 pad modes, the evenly spaced coordinates are extrapolated on the host with
 the same spacing, and each padded coordinate records its ``pad_width`` in
-its attrs so that :func:`unpad` can invert the pad by slicing.  The
-``"constant"`` mode pads on the data's device (``torch.nn.functional.pad``),
-and so do the modes that only repeat elements (``"edge"``, ``"wrap"``, and
-``"reflect"``/``"symmetric"`` with the even reflect type): numpy pads an
-index per axis and the data are gathered with ``index_select``.  The other
-modes (``"linear_ramp"``, the statistic modes, the odd reflect type) pad a
-CPU tensor with ``numpy.pad`` and raise for a tensor on another device:
-the data never leave the card unasked.
+its attrs so that :func:`unpad` can invert the pad by slicing.
+
+Every mode pads on the data's device, the CPU included, so the CPU tests
+run the code the card runs.  ``"constant"`` is ``torch.nn.functional.pad``;
+the modes that only repeat elements (``"edge"``, ``"wrap"``, and
+``"reflect"``/``"symmetric"`` with the even reflect type) gather an index
+that numpy pads on the host.  The others repeat ``numpy.pad``'s own steps
+in torch, axis by axis as numpy pads (so the corners come out as
+numpy's): ``"linear_ramp"`` with ``numpy.linspace``'s formula and working
+dtype, the statistic modes (``"maximum"``, ``"mean"``, ``"median"``,
+``"minimum"``) over ``stat_length`` edge elements with numpy's rounding of
+integer data, and the odd reflect type as numpy's chunk by chunk
+``2 * edge - reflected``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ __all__ = ["pad", "unpad"]
 
 # modes whose padded values are copies of the data's own elements
 _INDEX_MODES = ("edge", "reflect", "symmetric", "wrap")
+_STAT_MODES = ("maximum", "mean", "median", "minimum")
 
 
 def _either_dict_or_kwargs(pos, kw, fname):
@@ -88,7 +94,7 @@ def pad(
     elif mode == "linear_ramp":
         kw["end_values"] = _per_axis(
             end_values if end_values is not None else 0, [0] * len(da.dims))
-    elif mode in ("maximum", "mean", "median", "minimum"):
+    elif mode in _STAT_MODES:
         if stat_length is not None:
             kw["stat_length"] = _per_axis(
                 stat_length, [da.sizes[d] for d in da.dims])
@@ -97,8 +103,9 @@ def pad(
             kw["reflect_type"] = reflect_type
 
     data = da.data
-    if mode == "constant":
-        padded = _pad_constant(data, widths, kw["constant_values"])
+    if mode in ("constant", "empty"):
+        # "empty" leaves numpy's pad area undefined: zeros are as good
+        padded = _pad_constant(data, widths, kw.get("constant_values", 0))
     elif mode in _INDEX_MODES and kw.get("reflect_type", "even") == "even":
         padded = data
         for axis, w in enumerate(widths):
@@ -106,13 +113,22 @@ def pad(
                 idx = np.pad(np.arange(data.shape[axis]), w, mode=mode)
                 padded = padded.index_select(
                     axis, torch.as_tensor(idx, device=data.device))
-    elif data.device.type == "cpu":
-        host = data.detach().resolve_conj().resolve_neg().numpy()
-        padded = torch.from_numpy(np.pad(host, widths, mode=mode, **kw))
+    elif mode in ("reflect", "symmetric"):
+        padded = data
+        for axis, w in enumerate(widths):
+            padded = _pad_odd_reflect(padded, axis, w, mode == "symmetric")
+    elif mode == "linear_ramp":
+        padded = data
+        ends = _as_pairs(kw["end_values"], data.ndim)
+        for axis, (w, e) in enumerate(zip(widths, ends)):
+            padded = _pad_linear_ramp(padded, axis, w, e)
+    elif mode in _STAT_MODES:
+        padded = data
+        lengths = _as_pairs(kw.get("stat_length"), data.ndim, as_index=True)
+        for axis, (w, n) in enumerate(zip(widths, lengths)):
+            padded = _pad_stat(padded, axis, w, n, mode)
     else:
-        raise NotImplementedError(
-            f"pad mode {mode!r} (reflect_type={reflect_type!r}) runs only on "
-            f"a CPU tensor; the data lie on {data.device}")
+        raise ValueError(f"mode {mode!r} is not supported")
 
     new_coords = {}
     for cname, c in da.coords.items():
@@ -153,6 +169,174 @@ def _pad_constant(data, widths, fill):
             data = torch.nn.functional.pad(data, lead + [0, after],
                                            value=fills[axis, 1].item())
     return data
+
+
+def _as_pairs(x, ndim, as_index=False):
+    """numpy's ``_as_pairs``: ``x`` broadcast to ``ndim`` (before, after)
+    pairs, with the same element types (numpy scalars, or Python numbers
+    from a broadcast list), so that the working dtypes below follow
+    numpy's promotion rules."""
+    if x is None:
+        return ((None, None),) * ndim
+    x = np.array(x)
+    if as_index:
+        x = np.round(x).astype(np.intp, copy=False)
+    if x.ndim < 3:
+        if x.size == 1:
+            x = x.ravel()
+            if as_index and x < 0:
+                raise ValueError("index can't contain negative values")
+            return ((x[0], x[0]),) * ndim
+        if x.size == 2 and x.shape != (2, 1):
+            x = x.ravel()
+            if as_index and (x[0] < 0 or x[1] < 0):
+                raise ValueError("index can't contain negative values")
+            return ((x[0], x[1]),) * ndim
+    if as_index and x.min() < 0:
+        raise ValueError("index can't contain negative values")
+    return np.broadcast_to(x, (ndim, 2)).tolist()
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+def _cat(parts, axis):
+    return torch.cat([p for p in parts if p.shape[axis]], dim=axis)
+
+
+def _ramp(end, edge, num, axis, dtype):
+    """``numpy.linspace(end, edge, num, endpoint=False, dtype=dtype,
+    axis=axis)`` for an ``edge`` of length 1 along ``axis``: computed in
+    the dtype numpy promotes ``end`` and ``edge`` to, with its formula
+    ``arange(num) * step + end`` (``arange(num) / num * delta + end``
+    where a step is 0), floored for integer data, then cast."""
+    dt = np.result_type(end, np.empty(0, _np_dtype(edge.dtype)))
+    if not np.issubdtype(dt, np.inexact):
+        dt = np.result_type(dt, np.float64)
+    tdt = _torch_dtype(dt)
+    start = torch.as_tensor(np.asarray(end, dtype=dt), device=edge.device)
+    delta = edge.to(tdt) - start
+    shape = [1] * edge.ndim
+    shape[axis] = num
+    y = torch.arange(num, dtype=tdt, device=edge.device).reshape(shape)
+    # a tensor divisor: torch's CUDA kernels divide by a Python number as a
+    # product with its reciprocal, which rounds apart from numpy's division
+    div = torch.full((), num, dtype=tdt, device=edge.device)
+    step = delta / div
+    # numpy's branch on a zero step, taken on the device without a sync
+    y = torch.where((step == 0).any(), y / div * delta, y * step)
+    y = y + start
+    if not (dtype.is_floating_point or dtype.is_complex):
+        y = torch.floor(y)
+    return y.to(dtype)
+
+
+def _pad_linear_ramp(data, axis, width, ends):
+    """One axis of numpy's ``linear_ramp``: from each end value linearly
+    to the edge, the end value included and the edge not."""
+    before, after = width
+    n = data.shape[axis]
+    parts = [data]
+    if before:
+        parts.insert(0, _ramp(ends[0], data.narrow(axis, 0, 1), before, axis,
+                              data.dtype))
+    if after:
+        parts.append(_ramp(ends[1], data.narrow(axis, n - 1, 1), after, axis,
+                           data.dtype).flip(axis))
+    return _cat(parts, axis) if len(parts) > 1 else data
+
+
+def _stat(chunk, axis, mode, dtype):
+    """numpy's statistic of ``chunk`` along ``axis`` (kept as length 1),
+    rounded half to even for integer data as ``numpy.pad`` rounds it."""
+    inexact = dtype.is_floating_point or dtype.is_complex
+    if mode == "maximum":
+        return chunk.amax(dim=axis, keepdim=True)
+    if mode == "minimum":
+        return chunk.amin(dim=axis, keepdim=True)
+    work = chunk if inexact else chunk.double()
+    if mode == "mean":
+        out = work.mean(dim=axis, keepdim=True)
+    else:
+        srt = work.sort(dim=axis).values
+        n = srt.shape[axis]
+        out = srt.narrow(axis, n // 2, 1)
+        if n % 2 == 0:
+            out = (srt.narrow(axis, n // 2 - 1, 1) + out) / 2
+        if work.is_floating_point():     # numpy's median of a NaN is NaN
+            out = torch.where(work.isnan().any(dim=axis, keepdim=True),
+                              torch.full_like(out, float("nan")), out)
+    return out if inexact else torch.round(out)
+
+
+def _pad_stat(data, axis, width, lengths, mode):
+    """One axis of numpy's statistic modes: each side repeats the statistic
+    of its ``stat_length`` nearest elements (all of them where the length
+    is None or longer than the axis)."""
+    before, after = width
+    if not (before or after):
+        return data
+    n = data.shape[axis]
+    left, right = (n if ln is None or n < ln else int(ln) for ln in lengths)
+    if (left == 0 or right == 0) and mode in ("maximum", "minimum"):
+        raise ValueError("stat_length of 0 yields no value for padding")
+    lstat = _stat(data.narrow(axis, 0, left), axis, mode, data.dtype)
+    rstat = lstat if left == right == n else \
+        _stat(data.narrow(axis, n - right, right), axis, mode, data.dtype)
+
+    def block(stat, w):
+        shape = list(data.shape)
+        shape[axis] = w
+        return stat.to(data.dtype).expand(shape)
+
+    return _cat([block(lstat, before), data, block(rstat, after)], axis)
+
+
+def _pad_odd_reflect(data, axis, width, include_edge):
+    """One axis of numpy's odd ``reflect``/``symmetric``: numpy's loop of
+    reflected chunks, each ``2 * edge - chunk`` about the current edge, so
+    that a pad wider than the axis comes out as numpy's."""
+    before, after = width
+    if not (before or after):
+        return data
+    n0 = data.shape[axis]
+    if n0 == 1:
+        return _cat([data.expand(*data.shape[:axis], before,
+                                 *data.shape[axis + 1:]), data,
+                     data.expand(*data.shape[:axis], after,
+                                 *data.shape[axis + 1:])], axis)
+    shape = list(data.shape)
+    shape[axis] += before + after
+    out = data.new_empty(shape)
+    out.narrow(axis, before, n0).copy_(data)
+    size = shape[axis]
+    left, right = before, after
+    while left > 0 or right > 0:
+        old = size - left - right
+        if include_edge:
+            old, off = old // n0 * n0, 1
+        else:
+            old, off = (old - 1) // (n0 - 1) * (n0 - 1), 0
+        if left > 0:
+            k = min(old, left)
+            stop = left - off              # chunk: out[stop + k : stop : -1]
+            chunk = out.narrow(axis, stop + 1, k).flip(axis)
+            chunk = 2 * out.narrow(axis, left, 1) - chunk
+            out.narrow(axis, left - k, k).copy_(chunk)
+            left -= k
+        if right > 0:
+            k = min(old, right)
+            first = size - right + off - 1 - k   # out[-right+off-2 : ... : -1]
+            chunk = out.narrow(axis, first, k).flip(axis)
+            chunk = 2 * out.narrow(axis, size - right - 1, 1) - chunk
+            out.narrow(axis, size - right, k).copy_(chunk)
+            right -= k
+    return out
 
 
 def _check_bad_coords(da: LabeledArray, padding_dims):
