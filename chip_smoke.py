@@ -28,7 +28,17 @@ PyTorch version on the card, and drives four paths at full width:
     the matmul route, the spectrogram, stft/istft and csd/coherence of
     8 x 2^22-sample series, and the hp Welch of one 1024^2 field against
     numpy float64;
-  * pad in every mode on the card against numpy.pad.
+  * pad in every mode on the card against numpy.pad;
+  * the scipy-namesake families at full width, each against its float64
+    result through cuFFT (and scipy on the host where that is cheap): the
+    DCT flagship (dct along x then y of 8 x 4096^2) with DCT-I, DST-I and
+    DCT-IV, the float64 dctn under cuFFT and the K4 recursion, hilbert2,
+    hilbert and envelope, fftconvolve and the direct convolution of a
+    4096^2 field with a 63^2 kernel and the direct/fft crossover table,
+    oaconvolve, resample_poly, decimate, savgol_filter and upfirdn on the
+    8 x 2^22 signal, zoom_fft and czt, fht/ifht of 4096 float64 profiles,
+    resample, and lombscargle of 64 x 65,536 samples at 16,384 frequencies.
+    Their K2 and K4 launches are counted from 0 around each "kernel" run.
 
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
@@ -81,6 +91,15 @@ K5_PACKED_N = 1 << 20
 WELCH_SEG = 1024               # bench.py:385-411
 SG_SHAPE, SG_SEG, SG_DT = (8, 1 << 22), 4096, 2.5e-4   # bench.py:413-445
 HP_WELCH_N, HP_WELCH_SEG = 1024, 256
+# the scipy-namesake phases: bench.py:457-487's convolution operands, the
+# square kernels of the direct/fft crossover, the filter taps, the Hankel
+# profiles, the resampled length, the Lomb-Scargle series and frequencies
+CONV_N, CONV_K = 4096, 63
+CROSSOVER_KS = (3, 7, 15, 31, 63, 127)
+FIR_TAPS = 255
+FHT_SHAPE = (4096, 4096)
+RESAMPLE_NUM = 3000
+LS_SHAPE, LS_FREQS = (64, 65536), 16384
 # H100 SXM peaks (NVIDIA's data sheet): HBM3, FP32 outside the tensor cores,
 # FP64 on the tensor cores, dense TF32 on the tensor cores
 HBM_BYTES_S, FP32_FLOP_S, FP64_FLOP_S = 3.35e12, 67e12, 67e12
@@ -1060,6 +1079,442 @@ def pad_phase(xt, card):
             f"{t_pad:.3f} ms on {SG_SHAPE} [{card}]")
 
 
+# ---- phases 16-24: the scipy-namesake families --------------------------
+
+
+def counted(kernels, fn):
+    """fn() with every kernel's launch count set to 0 just before; returns
+    its result and the counts just after."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def under(impl, fn, *args, **kw):
+    """fn(*args, **kw) under config.fft_impl = impl."""
+    from xrft_tpu_torch.config import fft_impl
+
+    with fft_impl(impl):
+        return fn(*args, **kw)
+
+
+def routes(kernels, label, fn, ref, lim, phase, card, impls=("torch",
+                                                               "kernel")):
+    """fn() under each fft_impl in ``impls`` against the float64 ``ref``
+    (rel err <= lim): under "kernel" a kernel of ``kernels`` must launch,
+    under "torch" none.  Logs the errors, launches and times; returns the
+    last result."""
+    for impl in impls:
+        out, n = counted(kernels, lambda: under(impl, fn))
+        err = rel_err(out.data, ref.data)
+        check(out.shape == ref.shape
+              and bool(torch.isfinite(out.data).all()),
+              f"{label} {impl}: unexpected output {out!r}")
+        check(err <= lim, f"{label} {impl}: rel err {err:.3e} > {lim}")
+        check((sum(n.values()) > 0) == (impl == "kernel"),
+              f"{label} {impl}: kernel launches {n}")
+        t = wall_ms(lambda: under(impl, fn), runs=3, warmup=1)
+        log(f"phase {phase}: {label}, fft_impl={impl!r}: rel err vs float64 "
+            f"{err:.3e} (limit {lim}), launches {n}, {t:.3f} ms [{card}]")
+    return out
+
+
+def host_split(fn, label, top=8):
+    """The host functions that take the most of one fn() call (cProfile,
+    own time, the call ended by a synchronize)."""
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    out = io.StringIO()
+    stats = pstats.Stats(prof, stream=out)
+    log(f"{label}: {stats.total_tt * 1e3:.3f} ms under cProfile; by own "
+        f"time:")
+    for (path, line, name), row in sorted(
+            stats.stats.items(), key=lambda kv: -kv[1][2])[:top]:
+        log(f"    {row[2] * 1e3:8.3f} ms  {path.split('/')[-1]}:{line} "
+            f"{name} ({row[1]} calls)")
+
+
+def host_row(d, row=0):
+    """One row of the leading axis as host float64 numpy."""
+    return d.data[row].double().cpu().numpy()
+
+
+def host_err(got, want) -> float:
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+def trig_phase(xt, k2, k4, card):
+    """Phases 16-17: dct(dct(x, "x"), "y") of the flagship (bench.py:447-455)
+    and idctn back, DCT-I and DST-I along x (K2 at 8190 = 90 x 91 and 8194 =
+    34 x 241), one type-IV dct along x, under cuFFT and K2, against float64
+    through cuFFT; then the same dctn in float64 under cuFFT and the K4
+    recursion against scipy.fft.dctn on the host."""
+    import scipy.fft as sfft
+
+    da = labeled(xt, field(MAIN_SHAPE, 40))
+    da64 = labeled(xt, da.data.double())
+
+    def dct2(d):
+        return xt.dct(xt.dct(d, dim="x"), dim="y")
+
+    ref = under("torch", dct2, da64)
+    got = routes({"fft_fourstep": k2}, f"dct2 flagship {MAIN_SHAPE}",
+                 lambda: dct2(da), ref, 1e-5, 16, card)
+    for impl in ("torch", "kernel"):
+        back = under(impl, xt.idctn, got, dim=["y", "x"])
+        e_rt = rel_err(back.data, da64.data)
+        check(e_rt <= 1e-5, f"idctn roundtrip {impl}: rel err {e_rt:.3e}")
+        log(f"phase 16: idctn roundtrip, fft_impl={impl!r}: rel err "
+            f"{e_rt:.3e} (limit 1e-5)")
+    del got, back, ref
+    device_split(lambda: under("kernel", dct2, da), "phase 16: dct2 "
+                 "flagship, 'kernel'", card)
+    for fn, kind in ((xt.dct, "DCT-I"), (xt.dst, "DST-I")):
+        ref = under("torch", fn, da64, dim="x", type=1)
+        routes({"fft_fourstep": k2}, f"{kind} along x",
+               lambda: fn(da, dim="x", type=1), ref, 1e-5, 16, card)
+        del ref
+    ref = xt.dct(da64, dim="x", type=4)
+    t0 = time.perf_counter()
+    got = xt.dct(da, dim="x", type=4)
+    torch.cuda.synchronize()
+    t_first = (time.perf_counter() - t0) * 1e3
+    t4 = wall_ms(lambda: xt.dct(da, dim="x", type=4), runs=3, warmup=0)
+    e4 = rel_err(got.data, ref.data)
+    check(e4 <= 1e-5, f"DCT-IV: rel err {e4:.3e}")
+    log(f"phase 16: DCT-IV along x (a 4096 x 4096 product in full float32): "
+        f"rel err vs float64 {e4:.3e} (limit 1e-5), {t4:.3f} ms "
+        f"({t_first:.3f} ms the first call, which builds the matrix) "
+        f"[{card}]")
+    del got, ref, da
+
+    # phase 17: the float64 dctn, cuFFT against the K4 recursion and scipy
+    hp = {}
+    for impl in ("torch", "kernel"):
+        hp[impl], n = counted({"dft64": k4}, lambda: under(
+            impl, xt.dctn, da64, dim=["y", "x"]))
+        check((n["dft64"] > 0) == (impl == "kernel"),
+              f"hp dctn {impl}: K4 launches {n}")
+        t = wall_ms(lambda: under(impl, xt.dctn, da64, dim=["y", "x"]),
+                    runs=3, warmup=1)
+        errs = [host_err(host_row(hp[impl], b),
+                         sfft.dctn(host_row(da64, b))) for b in (0, 1)]
+        check(max(errs) <= 1e-12, f"hp dctn {impl}: rel err {errs} vs scipy")
+        log(f"phase 17: dctn {MAIN_SHAPE} float64, fft_impl={impl!r}: rel "
+            f"err vs scipy.fft.dctn (fields 0, 1) {errs[0]:.3e}, "
+            f"{errs[1]:.3e} (limit 1e-12), K4 launches {n['dft64']}, "
+            f"{t:.3f} ms [{card}]")
+    e = rel_err(hp["kernel"].data, hp["torch"].data)
+    check(e <= 1e-12, f"hp dctn: K4 vs cuFFT rel err {e:.3e}")
+    log(f"phase 17: hp dctn, K4 recursion vs cuFFT complex128: rel err "
+        f"{e:.3e} (limit 1e-12)")
+    device_split(lambda: under("kernel", xt.dctn, da64, dim=["y", "x"]),
+                 "phase 17: hp dctn, 'kernel'", card)
+
+
+def analytic_phase(xt, k2, card):
+    """Phase 18: hilbert2 of the flagship, hilbert and envelope along x
+    (n = 4096) under cuFFT and K2, and hilbert along t of the 8 x 2^22
+    spectrogram signal under cuFFT, each against float64 through cuFFT;
+    "kernel" must raise on the 2^22 rows (K2's lengths end at 65536)."""
+    da = labeled(xt, field(MAIN_SHAPE, 41))
+    da64 = labeled(xt, da.data.double())
+    for fn, kw, label in ((xt.hilbert2, dict(dim=["y", "x"]), "hilbert2"),
+                          (xt.hilbert, dict(dim="x"), "hilbert along x"),
+                          (xt.envelope, dict(dim="x"), "envelope along x")):
+        ref = under("torch", fn, da64, **kw)
+        routes({"fft_fourstep": k2}, f"{label} {MAIN_SHAPE}",
+               lambda: fn(da, **kw), ref, 1e-5, 18, card)
+        del ref
+    device_split(lambda: under("kernel", xt.hilbert2, da, dim=["y", "x"]),
+                 "phase 18: hilbert2 flagship, 'kernel'", card)
+    del da, da64
+    sig = xt.LabeledArray(field(SG_SHAPE, 42), dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    ref = xt.hilbert(sig.copy(data=sig.data.double()), dim="t")
+    routes({"fft_fourstep": k2}, f"hilbert along t {SG_SHAPE}",
+           lambda: xt.hilbert(sig, dim="t"), ref, 1e-5, 18, card,
+           impls=("torch",))
+    try:
+        under("kernel", xt.hilbert, sig, dim="t")
+        raise AssertionError("hilbert of 2^22 rows under 'kernel' did not "
+                             "raise")
+    except ValueError as e:
+        check("four-step kernel" in str(e), f"unexpected error: {e}")
+        log(f"phase 18: hilbert along t {SG_SHAPE} under 'kernel' raises, "
+            f"as it must: {e}")
+
+
+def convolve_phase(xt, k2, card):
+    """Phase 19: fftconvolve of a 4096^2 field with a 63^2 kernel,
+    mode="same" (bench.py:457-474), under cuFFT and K2 (8192-point
+    transforms), against float64 through cuFFT; convolve(method="direct")
+    on the same operands (one cuDNN convolution at full float32 grade,
+    bench.py:476-487) against the same reference; the TF32 default shown
+    beside it; then the direct/fft crossover for square kernels from 3^2 to
+    127^2 on the same field."""
+    import torch.nn.functional as F
+
+    from xrft_tpu_torch.config import config
+
+    def field2(shape, seed):
+        return xt.LabeledArray(field(shape, seed), dims=("y", "x"),
+                               coords={"y": np.arange(shape[0]) * 1.0,
+                                       "x": np.arange(shape[1]) * 1.0})
+
+    n = CONV_N
+    da = field2((n, n), 43)
+    kern = field2((CONV_K, CONV_K), 44)
+    ref = xt.fftconvolve(da.copy(data=da.data.double()),
+                         kern.copy(data=kern.data.double()), mode="same")
+    routes({"fft_fourstep": k2}, f"fftconvolve {n}^2 * {CONV_K}^2 same",
+           lambda: xt.fftconvolve(da, kern, mode="same"), ref, 1e-5, 19,
+           card)
+    direct = xt.convolve(da, kern, mode="same", method="direct")
+    fft32 = xt.fftconvolve(da, kern, mode="same")
+    torch.cuda.synchronize()
+    e_d = rel_err(direct.data, ref.data)
+    e_df = rel_err(direct.data, fft32.data.double())
+    check(direct.dtype == torch.float32 and e_d <= 1e-5 and e_df <= 1e-5,
+          f"direct convolution: rel err {e_d:.3e} vs float64, {e_df:.3e} "
+          f"vs the float32 fft route (TF32?)")
+    check(np.array_equal(direct.coords["x"].values, ref.coords["x"].values),
+          "direct convolution: support grid differs from the fft route's")
+    t_direct = event_ms(lambda: xt.convolve(da, kern, mode="same",
+                                            method="direct"),
+                        runs=3, warmup=1, batch=1)
+    # the trap: the same correlation through cuDNN at its TF32 default
+    conv = torch.backends.cudnn.conv
+    saved, conv.fp32_precision = conv.fp32_precision, "tf32"
+    try:
+        lo, hi = CONV_K // 2, (CONV_K - 1) // 2
+        padded = F.pad(da.data, [lo, hi, lo, hi])[None, None]
+        flipped = kern.data.flip((0, 1))[None, None]
+        tf32 = F.conv2d(padded, flipped)[0, 0]
+        t_tf32 = event_ms(lambda: F.conv2d(padded, flipped), runs=1,
+                          warmup=0, batch=1)
+    finally:
+        conv.fp32_precision = saved
+    e_tf32 = rel_err(tf32, ref.data)
+    log(f"phase 19: convolve(method='direct') {n}^2 * {CONV_K}^2: rel err "
+        f"vs float64 {e_d:.3e}, vs the float32 fft route {e_df:.3e} (limit "
+        f"1e-5), {t_direct:.3f} ms between CUDA events; the same "
+        f"convolution at cuDNN's TF32 default: rel err {e_tf32:.3e}, "
+        f"{t_tf32:.3f} ms [{card}]")
+    del tf32, direct, fft32, ref, padded
+    device_split(lambda: xt.convolve(da, kern, mode="same", method="direct"),
+                 "phase 19: direct convolution", card)
+    device_split(lambda: under("kernel", xt.fftconvolve, da, kern,
+                               mode="same"),
+                 "phase 19: fftconvolve, 'kernel'", card)
+
+    rows, crossover = [], 0
+    for k in CROSSOVER_KS:
+        kk = field2((k, k), 45)
+        t_d = wall_ms(lambda: xt.convolve(da, kk, mode="same",
+                                          method="direct"), runs=3, warmup=1)
+        t_f = wall_ms(lambda: xt.convolve(da, kk, mode="same",
+                                          method="fft"), runs=3, warmup=1)
+        e = rel_err(xt.convolve(da, kk, mode="same", method="direct").data,
+                    xt.fftconvolve(da.copy(data=da.data.double()),
+                                   kk.copy(data=kk.data.double()),
+                                   mode="same").data)
+        check(e <= 1e-5, f"direct {k}^2: rel err {e:.3e} vs float64")
+        if t_d < t_f and crossover == (rows[-1][0] ** 2 if rows else 0):
+            crossover = k * k
+        rows.append((k, t_d, t_f, e))
+    log(f"phase 19: direct vs fft ('torch') on {n}^2, mode='same' "
+        f"[{card}]:")
+    for k, t_d, t_f, e in rows:
+        log(f"    {k:4d}^2 = {k * k:6d} elements: direct {t_d:8.3f} ms, fft "
+            f"{t_f:8.3f} ms, direct rel err vs float64 {e:.3e}")
+    log(f"phase 19: measured direct_conv_max {crossover} (the largest "
+        f"kernel of the run of sizes from 3^2 up where direct is faster); "
+        f"config.direct_conv_max = {config.direct_conv_max}")
+    pick = xt.choose_conv_method(da, kern, mode="same", measure=True)
+    log(f"phase 19: choose_conv_method(measure=True) for {CONV_K}^2: {pick}")
+
+
+def filter_phase(xt, k2, card):
+    """Phase 20: on the 8 x 2^22 float32 signal, oaconvolve with a 255-tap
+    firwin (cuFFT, and K2 in blocks of nfft = 2048), resample_poly(up=3,
+    down=2), decimate(q=4), savgol_filter(101, 3) and upfirdn(up=2,
+    down=3), each against float64 through cuFFT on the card and against
+    scipy.signal on the host for one row."""
+    sig = xt.LabeledArray(field(SG_SHAPE, 46), dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    sig64 = sig.copy(data=sig.data.double())
+    h = xt.firwin(FIR_TAPS, 0.1)
+    taps = xt.LabeledArray(torch.as_tensor(h, dtype=torch.float32,
+                                           device=DEV), dims=("t",))
+    row = host_row(sig64)
+    cases = (
+        ("oaconvolve", lambda s, tp: xt.oaconvolve(s, tp, dims="t",
+                                                   mode="same"),
+         lambda: sps.oaconvolve(row, h, mode="same"), ("torch", "kernel")),
+        ("resample_poly(3, 2)", lambda s, tp: xt.resample_poly(s, 3, 2),
+         lambda: sps.resample_poly(row, 3, 2), ("torch",)),
+        ("decimate(4)", lambda s, tp: xt.decimate(s, 4),
+         lambda: sps.decimate(row, 4, ftype="fir"), ("torch",)),
+        ("savgol_filter(101, 3)", lambda s, tp: xt.savgol_filter(s, 101, 3),
+         lambda: sps.savgol_filter(row, 101, 3), ("torch",)),
+        ("upfirdn(2, 3)", lambda s, tp: xt.upfirdn(h, s, 2, 3),
+         lambda: sps.upfirdn(h, row, 2, 3), ("torch",)),
+    )
+    for label, fn, scipy_fn, impls in cases:
+        ref = fn(sig64, taps.copy(data=taps.data.double()))
+        got = routes({"fft_fourstep": k2}, f"{label} {SG_SHAPE}",
+                     lambda: fn(sig, taps), ref, 1e-5, 20, card, impls)
+        e = host_err(host_row(got), scipy_fn())
+        check(e <= 1e-5, f"{label}: rel err {e:.3e} vs scipy.signal")
+        log(f"phase 20: {label}: row 0 against scipy.signal on the host: "
+            f"rel err {e:.3e} (limit 1e-5)")
+        del ref, got
+    device_split(lambda: xt.resample_poly(sig, 3, 2),
+                 "phase 20: resample_poly(3, 2), 'torch'", card)
+    host_split(lambda: xt.resample_poly(sig, 3, 2),
+               "phase 20: resample_poly(3, 2), host")
+    device_split(lambda: under("kernel", xt.oaconvolve, sig, taps, dims="t",
+                               mode="same"),
+                 "phase 20: oaconvolve, 'kernel'", card)
+
+
+def czt_phase(xt, k2, card):
+    """Phase 21: zoom_fft (band [0.1, 0.6] of fs = 2) and czt along x of
+    the flagship (n = m = 4096, chirp length 8192) under cuFFT and K2,
+    against float64 through cuFFT and, for one row, scipy.signal."""
+    da = labeled(xt, field(MAIN_SHAPE, 47))
+    da64 = labeled(xt, da.data.double())
+    row = da64.data[0, 0].cpu().numpy()
+    for label, fn, scipy_fn in (
+            ("zoom_fft [0.1, 0.6]",
+             lambda d: xt.zoom_fft(d, [0.1, 0.6], dim="x"),
+             lambda: sps.zoom_fft(row, [0.1, 0.6], fs=2.0)),
+            ("czt", lambda d: xt.czt(d, dim="x"), lambda: sps.czt(row))):
+        ref = fn(da64)
+        got = routes({"fft_fourstep": k2}, f"{label} along x {MAIN_SHAPE}",
+                     lambda: fn(da), ref, 1e-5, 21, card)
+        e = host_err(got.data[0, 0].cpu().numpy(), scipy_fn())
+        check(e <= 1e-5, f"{label}: rel err {e:.3e} vs scipy.signal")
+        log(f"phase 21: {label}: row (0, 0) against scipy.signal: rel err "
+            f"{e:.3e} (limit 1e-5)")
+        del ref, got
+    device_split(lambda: under("kernel", xt.zoom_fft, da, [0.1, 0.6],
+                               dim="x"),
+                 "phase 21: zoom_fft flagship, 'kernel'", card)
+
+
+def fht_phase(xt, k4, card):
+    """Phase 22: fht and ifht of 4096 log-spaced float64 profiles of 4096
+    points (mu = 0, the low-ringing offset) under cuFFT and the K4
+    recursion, against scipy.fft.fht on the host for two rows, and the
+    round trip.  dln is passed as scipy gets it: the one derived from the
+    coordinate differs in its last bits, which the kernel's phase
+    2 y (ln 2 - offset) carries to about 1e-11 of the result."""
+    import scipy.fft as sfft
+
+    r = np.logspace(-4.0, 2.0, FHT_SHAPE[1])
+    dln = float(np.log(r[1] / r[0]))
+    offset = xt.fhtoffset(dln, 0.0)
+    env = torch.as_tensor(np.exp(-(np.log(r) / 3.0) ** 2), device=DEV)
+    prof = xt.LabeledArray(field(FHT_SHAPE, 48, torch.float64) * env,
+                           dims=("z", "r"), coords={"r": r})
+    a = prof.values
+    out = {}
+    for impl in ("torch", "kernel"):
+        A, n = counted({"dft64": k4}, lambda: under(
+            impl, xt.fht, prof, dln=dln, mu=0.0, offset=offset, dim="r"))
+        back = under(impl, xt.ifht, A, dln=dln, mu=0.0, offset=offset,
+                     dim="freq_r")
+        torch.cuda.synchronize()
+        check((n["dft64"] > 0) == (impl == "kernel"),
+              f"fht {impl}: K4 launches {n}")
+        errs = [host_err(host_row(A, b),
+                         sfft.fht(a[b], dln, mu=0.0, offset=offset))
+                for b in (0, 1)]
+        e_rt = rel_err(back.data, prof.data)
+        check(max(errs) <= 1e-12 and e_rt <= 1e-12,
+              f"fht {impl}: rel err {errs} vs scipy, roundtrip {e_rt:.3e}")
+        t = wall_ms(lambda: under(impl, xt.fht, prof, dln=dln, mu=0.0,
+                                  offset=offset, dim="r"), runs=3, warmup=1)
+        log(f"phase 22: fht {FHT_SHAPE} float64, fft_impl={impl!r}: rel err "
+            f"vs scipy.fft.fht (rows 0, 1) {errs[0]:.3e}, {errs[1]:.3e} "
+            f"(limit 1e-12), ifht roundtrip {e_rt:.3e} (limit 1e-12), K4 "
+            f"launches {n['dft64']}, {t:.3f} ms [{card}]")
+        out[impl] = A
+    e = rel_err(out["kernel"].data, out["torch"].data)
+    check(e <= 1e-12, f"fht: K4 vs cuFFT rel err {e:.3e}")
+    device_split(lambda: under("kernel", xt.fht, prof, dln=dln, mu=0.0,
+                               offset=offset, dim="r"),
+                 "phase 22: fht, 'kernel'", card)
+
+
+def resample_phase(xt, k2, card):
+    """Phase 23: resample of the flagship along x, 4096 -> 3000 (K2 runs
+    3000 = 12 x 250), under cuFFT and K2, and of the 8 x 2^22 signal to
+    2^21 under cuFFT, against float64 through cuFFT."""
+    da = labeled(xt, field(MAIN_SHAPE, 49))
+    ref = xt.resample(labeled(xt, da.data.double()), RESAMPLE_NUM, dim="x")
+    routes({"fft_fourstep": k2}, f"resample {MAIN_SHAPE} -> {RESAMPLE_NUM} "
+           f"along x", lambda: xt.resample(da, RESAMPLE_NUM, dim="x"), ref,
+           1e-5, 23, card)
+    device_split(lambda: under("kernel", xt.resample, da, RESAMPLE_NUM,
+                               dim="x"),
+                 "phase 23: resample flagship, 'kernel'", card)
+    del da, ref
+    sig = xt.LabeledArray(field(SG_SHAPE, 50), dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    half = SG_SHAPE[1] // 2
+    ref = xt.resample(sig.copy(data=sig.data.double()), half, dim="t")
+    routes({"fft_fourstep": k2}, f"resample {SG_SHAPE} -> {half} along t",
+           lambda: xt.resample(sig, half, dim="t"), ref, 1e-5, 23, card,
+           impls=("torch",))
+
+
+def lombscargle_phase(xt, card):
+    """Phase 24: lombscargle of 64 series of 65,536 irregular samples at
+    16,384 frequencies, float64 and float32 (the basis built in float64 on
+    the card, one product at full float32 grade); float32 against float64."""
+    rng = np.random.RandomState(51)
+    nb, n = LS_SHAPE
+    t = np.sort(rng.uniform(0.0, float(n), n))
+    t[0] = 0.0
+    freqs = 2 * np.pi * np.linspace(1e-3, 0.5, LS_FREQS)
+    y = field(LS_SHAPE, 52, torch.float64) + torch.cos(
+        torch.as_tensor(0.7 * t, device=DEV))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        da = xt.LabeledArray(y.to(dtype), dims=("z", "t"), coords={"t": t})
+        t0 = time.perf_counter()
+        out[dtype] = xt.lombscargle(da, freqs, floating_mean=True).data
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        ms = wall_ms(lambda: xt.lombscargle(da, freqs, floating_mean=True),
+                     runs=2, warmup=0)
+        log(f"phase 24: lombscargle {LS_SHAPE} at {LS_FREQS} frequencies, "
+            f"{str(dtype).removeprefix('torch.')}: {ms:.3f} ms ({first:.3f} "
+            f"first call) [{card}]")
+        if dtype == torch.float32:
+            device_split(lambda: xt.lombscargle(da, freqs,
+                                                floating_mean=True),
+                         "phase 24: lombscargle float32", card)
+        del da
+    e = rel_err(out[torch.float32], out[torch.float64])
+    check(bool(torch.isfinite(out[torch.float32]).all()) and e <= 1e-5,
+          f"lombscargle float32: rel err {e:.3e} vs float64")
+    log(f"phase 24: lombscargle float32 vs float64: rel err {e:.3e} (limit "
+        f"1e-5)")
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -1284,6 +1739,16 @@ def main():
     log(f"phase 14: K5a launches on the Welch flagship under 'matmul': "
         f"{welch_k5a}")
     pad_phase(xt, card)
+
+    # ---- phases 16-24: the scipy-namesake families ------------------------
+    trig_phase(xt, fft_fourstep.fft_last, dft64.dft_last, card)
+    analytic_phase(xt, fft_fourstep.fft_last, card)
+    convolve_phase(xt, fft_fourstep.fft_last, card)
+    filter_phase(xt, fft_fourstep.fft_last, card)
+    czt_phase(xt, fft_fourstep.fft_last, card)
+    fht_phase(xt, dft64.dft_last, card)
+    resample_phase(xt, fft_fourstep.fft_last, card)
+    lombscargle_phase(xt, card)
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]

@@ -11,12 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from xrft_tpu_torch import (LabeledArray, fft, ifft,
+from xrft_tpu_torch import (LabeledArray, convolve, dct, dctn, fft,
+                            fftconvolve, fht, hilbert, ifft,
                             isotropic_cross_spectrum,
-                            isotropic_power_spectrum, pad, power_spectrum,
-                            welch)
-from xrft_tpu_torch.config import (binned_sum_impl, fft_impl, level0_impl,
-                                   psd_mirror_impl)
+                            isotropic_power_spectrum, oaconvolve, pad,
+                            power_spectrum, resample, welch, zoom_fft)
+from xrft_tpu_torch.config import (binned_sum_impl, fft_impl, full_fp32,
+                                   level0_impl, psd_mirror_impl)
 from xrft_tpu_torch.ops import binning, dft64, dot, fft_fourstep, mirror
 
 pytestmark = pytest.mark.cuda
@@ -398,3 +399,97 @@ def test_pad_on_the_card_matches_numpy(cuda, mode, kw):
                                    atol=2e-6 * np.abs(want).max())
     else:
         np.testing.assert_array_equal(got.data.cpu().numpy(), want)
+
+
+def test_direct_convolution_at_float32_grade(cuda):
+    """cuDNN runs float32 convolutions in TF32 by default (about 1e-3
+    relative); the direct route runs inside full_fp32, so it agrees with
+    the float64 FFT route at float32 grade, and leaves the caller's TF32
+    setting as it found it."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 512, 512), generator=g, device=cuda)
+    k = torch.randn((31, 31), generator=g, device=cuda)
+    conv = torch.backends.cudnn.conv
+    old, conv.fp32_precision = conv.fp32_precision, "tf32"
+    try:
+        da = LabeledArray(x, ("z", "y", "x"))
+        dk = LabeledArray(k, ("y", "x"))
+        for mode in ("full", "same", "valid"):
+            got = convolve(da, dk, mode=mode, method="direct")
+            ref = fftconvolve(da.copy(data=x.double()),
+                              dk.copy(data=k.double()), mode=mode)
+            torch.cuda.synchronize()
+            assert got.data.is_cuda and got.dtype == torch.float32
+            assert _rel(got.data.double(), ref.data) <= 2e-6, mode
+        assert conv.fp32_precision == "tf32"
+    finally:
+        conv.fp32_precision = old
+
+
+@pytest.mark.parametrize("legacy", [None, True, False])
+def test_full_fp32_keeps_the_callers_cudnn_setting(cuda, legacy):
+    """A caller's cuDNN TF32 setting, legacy flag or new API, is as it was
+    after a direct convolution on the card."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.fp32_precision, cudnn.conv.fp32_precision,
+             cudnn.rnn.fp32_precision)
+    try:
+        if legacy is not None:
+            cudnn.allow_tf32 = legacy
+        before = (cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision)
+        allow = cudnn.allow_tf32
+        x = torch.randn((4, 64, 64), device=cuda)
+        convolve(LabeledArray(x, ("z", "y", "x")),
+                 LabeledArray(x[0, :5, :5], ("y", "x")), method="direct")
+        with full_fp32():
+            assert cudnn.conv.fp32_precision == "ieee"
+        torch.cuda.synchronize()
+        assert (cudnn.conv.fp32_precision,
+                cudnn.rnn.fp32_precision) == before
+        assert cudnn.allow_tf32 == allow
+    finally:
+        (cudnn.fp32_precision, cudnn.conv.fp32_precision,
+         cudnn.rnn.fp32_precision) = saved
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_namesakes_through_kernels(cuda, impl):
+    """The scipy-namesake families take K2 (float32) and the K4 recursion
+    (float64) under fft_impl="kernel" and none under "torch", and agree
+    with the float64 cuFFT route: 2e-6 of max in float32, 1e-12 in
+    float64."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((4, 256, 512), generator=g, device=cuda)
+    r = np.logspace(-3, 2, 512)
+    da = LabeledArray(x, ("z", "y", "x"), {"x": np.arange(512) * 0.5})
+    da64 = da.copy(data=x.double())
+    kern = LabeledArray(x[0, :9, :9].contiguous(), ("y", "x"))
+    taps = LabeledArray(x[0, 0, :33].contiguous(), ("x",))
+
+    def as_dtype(k, d):
+        return k.copy(data=k.data.to(d.dtype))
+
+    calls = [
+        lambda d: dct(d, dim="x", type=1),
+        lambda d: dctn(d, dim=["y", "x"], norm="ortho"),
+        lambda d: hilbert(d, dim="x"),
+        lambda d: fftconvolve(d, as_dtype(kern, d), mode="same"),
+        lambda d: oaconvolve(d, as_dtype(taps, d), dims="x", mode="same"),
+        lambda d: zoom_fft(d, [0.1, 0.5], dim="x"),
+        lambda d: resample(d, 300, dim="x"),
+        lambda d: fht(d.assign_coords(x=r), mu=0.5, dim="x"),
+    ]
+    for fn in calls:
+        k2, k4 = fft_fourstep.fft_last.launches, dft64.dft_last.launches
+        with fft_impl(impl):
+            got32 = fn(da)
+            got64 = fn(da64)
+        n2 = fft_fourstep.fft_last.launches - k2
+        n4 = dft64.dft_last.launches - k4
+        ref = fn(da64)
+        torch.cuda.synchronize()
+        assert (n2 > 0 and n4 > 0) == (impl == "kernel")
+        assert (n2 == 0 and n4 == 0) == (impl == "torch")
+        assert got32.data.is_cuda and got64.data.is_cuda
+        assert _rel(got32.data.to(ref.dtype), ref.data) <= 2e-6
+        assert _rel(got64.data, ref.data) <= 1e-12

@@ -11,7 +11,12 @@ and cross phase, the isotropic (radially binned) spectra, the float64
 precision path (``engine="hp"``, ``fft64``/``ifft64``), the segmented
 estimators (``chunks_to_segments``, ``welch``, ``csd``, ``periodogram``,
 ``spectrogram``, ``coherence``, ``stft``/``istft``, ``pad``/``unpad``) and
-the matmul FFT engine (``config.fft_impl = "matmul"``), with hand-written
+the matmul FFT engine (``config.fft_impl = "matmul"``) and the
+scipy-namesake families (``hilbert``/``envelope``, the DCT/DST family,
+``fftconvolve``/``oaconvolve``/``convolve``/``correlate``, the FIR filters
+and ``resample_poly``/``decimate``/``savgol_filter``, ``czt``/``zoom_fft``,
+``fht``/``ifht``, ``resample`` and ``lombscargle``, each taking its FFTs
+through ``config.fft_impl`` or its per-call ``engine=``), with hand-written
 CUDA kernels for Hopper: the fused PSD epilogue (:mod:`.ops.mirror`), the
 four-step DFT (:mod:`.ops.fft_fourstep`), the binned sum
 (:mod:`.ops.binning`), the FP64 direct DFT (:mod:`.ops.dft64`) and the
@@ -21,45 +26,84 @@ Host data (numpy) given to the package land on the CUDA device unless the
 caller asks for the CPU (``device="cpu"``, or a CPU tensor).
 """
 
+from .analytic import envelope, hilbert, hilbert2
 from .config import config
+from .convolve import (choose_conv_method, convolve, correlate, fftconvolve,
+                       oaconvolve)
+from .czt import czt, zoom_fft
 from .detrend import detrend
+from .fht import fht, fhtoffset, ifht
+from .filter import (decimate, firwin, resample_poly, savgol_coeffs,
+                     savgol_filter, upfirdn)
 from .highprec import fft64, ifft64
 from .isotropic import (fit_loglog, isotropic_cross_spectrum,
                         isotropic_power_spectrum, isotropize)
 from .labeled import Coord, LabeledArray
+from .lombscargle import lombscargle
 from .padding import pad, unpad
+from .resample import resample
 from .spectra import (coherence, cross_phase, cross_spectrum, csd,
                       periodogram, power_spectrum, spectrogram, welch)
 from .stft import istft, stft
 from .transform import dft, fft, idft, ifft
+from .trig import dct, dctn, dst, dstn, idct, idctn, idst, idstn
 from .utils import get_spacing
 
 __all__ = [
     "Coord",
     "LabeledArray",
+    "choose_conv_method",
     "coherence",
     "config",
+    "convolve",
+    "correlate",
     "cross_phase",
     "cross_spectrum",
     "csd",
+    "czt",
+    "dct",
+    "dctn",
+    "decimate",
     "detrend",
     "dft",
+    "dst",
+    "dstn",
+    "envelope",
     "fft",
     "fft64",
+    "fftconvolve",
+    "fht",
+    "fhtoffset",
+    "firwin",
     "fit_loglog",
     "get_spacing",
+    "hilbert",
+    "hilbert2",
+    "idct",
+    "idctn",
     "idft",
+    "idst",
+    "idstn",
     "ifft",
     "ifft64",
+    "ifht",
     "isotropic_cross_spectrum",
     "isotropic_power_spectrum",
-    "istft",
     "isotropize",
+    "istft",
+    "lombscargle",
+    "oaconvolve",
     "pad",
     "periodogram",
     "power_spectrum",
+    "resample",
+    "resample_poly",
+    "savgol_coeffs",
+    "savgol_filter",
     "spectrogram",
     "stft",
     "unpad",
+    "upfirdn",
     "welch",
+    "zoom_fft",
 ]

@@ -2,10 +2,13 @@
 
 Counterpart of ``xrft_tpu/config.py``, reduced to the knobs that mean
 something on a CUDA device: which route each hand-written kernel's step
-takes.  Everything else in the JAX package's config
+takes, and the direct/FFT crossover of ``choose_conv_method``.
+:func:`engine_impl` maps the modules' per-call ``engine=`` onto
+``fft_impl``.  Everything else in the JAX package's config
 steers TPU-only machinery (split complex, df64) that this package does not
 carry.  :func:`full_fp32` is the one scoped switch of torch's own state:
-float32 products at full float32 grade for the duration of a call.
+float32 products and cuDNN convolutions at full float32 grade for the
+duration of a call.
 """
 
 from __future__ import annotations
@@ -70,9 +73,20 @@ class _Config:
     #              small grids, a sorted prefix difference for large ones.
     # A CPU tensor takes the plain route under either value.
     binned_sum_impl: str = "kernel"
+    # choose_conv_method's crossover (xrft_tpu/config.py:143-153, 8192 on
+    # the TPU): a kernel of at most this many elements takes
+    # method="direct" (one cuDNN convolution at full float32 grade), a
+    # larger one the padded FFT route.  chip_smoke.py's phase 19 measures
+    # it on the 4096^2 field for square kernels from 3^2 to 127^2: on an
+    # H100 the direct route won at 3^2 and 7^2 (about 1 ms against 5.4)
+    # and lost from 15^2 on (15.1 ms; 219 at 63^2).
+    direct_conv_max: int = 49
 
 
 config = _Config()
+
+# the modules' per-call engine= (xrft_tpu's fft engines) as an fft_impl
+_ENGINE_IMPLS = {"xla": "torch", "matmul": "matmul"}
 
 
 def _check(value, allowed, what):
@@ -105,9 +119,25 @@ def level0_impl(impl: str):
 
 
 @contextmanager
+def engine_impl(engine):
+    """Run the block under the ``config.fft_impl`` that a module's per-call
+    ``engine=`` names, as ``xrft_tpu``'s ``resolve_fft_engine`` resolves it:
+    None and "auto" keep the current ``fft_impl``, "xla" is "torch" (cuFFT)
+    and "matmul" the matmul engine; anything else raises."""
+    if engine in (None, "auto"):
+        yield
+        return
+    if engine not in _ENGINE_IMPLS:
+        raise ValueError(f"Unknown fft engine {engine!r}")
+    with fft_impl(_ENGINE_IMPLS[engine]):
+        yield
+
+
+@contextmanager
 def full_fp32():
-    """float32 matrix products at full float32 grade (no TF32) inside the
-    block; the caller's setting is restored on the way out.
+    """float32 matrix products and cuDNN convolutions at full float32 grade
+    (no TF32) inside the block; the caller's settings are restored on the
+    way out.
 
     torch keeps one generic precision and one per backend (cuBLAS, oneDNN),
     which ``torch.backends.cuda.matmul.allow_tf32`` also writes.  Setting
@@ -116,20 +146,26 @@ def full_fp32():
     on its next check of a caller who then flips ``allow_tf32``.  Both
     backends are therefore restored as they were.  A generic value that
     torch itself refuses to read (the caller mixed the two APIs) is left as
-    "highest"."""
+    "highest".  cuDNN's convolutions run TF32 by default
+    (``torch.backends.cudnn.conv.fp32_precision`` reads "tf32"); the block
+    sets that one precision to "ieee" and restores its value, which is also
+    what the legacy ``torch.backends.cudnn.allow_tf32`` reads and writes."""
     cuda, cpu = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
-    backends = cuda.fp32_precision, cpu.fp32_precision
+    conv = torch.backends.cudnn.conv
+    backends = cuda.fp32_precision, cpu.fp32_precision, conv.fp32_precision
     try:
         generic = torch.get_float32_matmul_precision()
     except RuntimeError:
         generic = None
     torch.set_float32_matmul_precision("highest")
+    conv.fp32_precision = "ieee"
     try:
         yield
     finally:
         if generic is not None:
             torch.set_float32_matmul_precision(generic)
-        cuda.fp32_precision, cpu.fp32_precision = backends
+        cuda.fp32_precision, cpu.fp32_precision, conv.fp32_precision = \
+            backends
 
 
 @contextmanager

@@ -20,6 +20,7 @@ from .labeled import Coord, LabeledArray
 
 __all__ = [
     "diff_coord",
+    "first_diff",
     "lag_coord",
     "get_coordinate_spacing",
     "freq_grids",
@@ -59,6 +60,12 @@ def diff_coord(coord: Coord) -> np.ndarray:
         diff = np.diff(values).astype("timedelta64[ns]").astype("f8")
         return diff / 1e9
     return np.diff(values)
+
+
+def first_diff(coord: Coord):
+    """``diff_coord(coord)[0]`` from the first two elements only, without
+    differencing a long coordinate."""
+    return diff_coord(coord.copy(values=np.asarray(coord.values)[:2]))[0]
 
 
 def lag_coord(coord: Coord) -> float:
