@@ -57,6 +57,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import scipy.signal as sps
@@ -1515,6 +1516,167 @@ def lombscargle_phase(xt, card):
         f"1e-5)")
 
 
+# ---- phase 25: the sharded path on a one-rank NCCL group ------------------
+
+
+def nccl_kernels(fn, calls=3) -> dict:
+    """{kernel name: count} of the NCCL kernels that torch.profiler records
+    on the card over ``calls`` calls of fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()}
+
+
+def under_config(cfg, impl, fn):
+    """fn() under config.fft_impl = impl and the config values ``cfg``."""
+    from xrft_tpu_torch.config import config
+
+    saved = {k: getattr(config, k) for k in cfg}
+    try:
+        for k, v in cfg.items():
+            setattr(config, k, v)
+        return under(impl, fn)
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+
+
+def sharded_phase(xt, kernels, card):
+    """Phase 25: the sharded path (xrft_tpu_torch.parallel) on the card, as
+    a one-rank NCCL group with a DeviceMesh {"fp": 1} over it.  The flagship
+    with y sharded goes through the pencil chain (its NCCL all_to_all moves
+    the sharding onto the batch axis) and the kernels run on the local
+    block: the PSD under cuFFT and under K2 (with K1), the isotropic PSD in
+    1024 bins (K3), the hp PSD under the K4 recursion, the Welch flagship in
+    1024^2 segments and the 1-D Welch, and hilbert sharded on the batch.
+    One 4096^2 field with y sharded has no batch to park the sharding on,
+    so its chain takes a roundtrip step and y stays sharded: its PSD (K1 on
+    the block, y's one rank holding the whole axis), the same PSD through
+    the plain Hermitian expansion (whose mirror gathers along y are NCCL
+    all_to_alls of the complex spectrum), and its isotropic PSD (K3 on the
+    rank's stretch of the grid, then an all_reduce).  Each path is held
+    against the unsharded call on the same field and timed beside it, with
+    its device split; the NCCL kernels of the flagship PSD and of each 2-D
+    path are counted in a profile."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from xrft_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = par.make_mesh({"fp": 1})
+        shards = {"y": "fp"}
+        da = labeled(xt, field(MAIN_SHAPE, 0))
+        dac = da.chunk({"y": WELCH_SEG, "x": WELCH_SEG})
+        ny, nx = MAIN_SHAPE[1:]
+        da2 = xt.LabeledArray(field((ny, nx), 3), dims=("y", "x"),
+                              coords={"y": np.arange(ny) * 0.5,
+                                      "x": np.arange(nx) * 0.5})
+        seg_kw = dict(dim=["y", "x"], window="hann", chunks_to_segments=True)
+        seg_dims = ["y_segment", "x_segment"]
+        plain_mirror = {"psd_mirror_impl": "plain"}
+        s0, rep = (Shard(0),), (Replicate(),)
+        paths = [
+            # label, field, impl, config, unsharded, sharded, limit, kernels
+            # that must run, planned placement (None: not checked)
+            ("PSD", da, "torch", {}, lambda: xt.power_spectrum(da, **MAIN_KW),
+             lambda: par.sharded_power_spectrum(da, mesh, shards, **MAIN_KW),
+             2e-6, {"mirror_psd": 1}, s0),
+            ("PSD", da, "kernel", {},
+             lambda: xt.power_spectrum(da, **MAIN_KW),
+             lambda: par.sharded_power_spectrum(da, mesh, shards, **MAIN_KW),
+             2e-6, {"mirror_psd": 1, "fft_fourstep": 2}, s0),
+            ("isotropic PSD, 1024 bins", da, "kernel", {},
+             lambda: xt.isotropic_power_spectrum(da, **ISO_KW),
+             lambda: par.sharded_isotropic_power_spectrum(da, mesh, shards,
+                                                          **ISO_KW),
+             2e-6, {"binned_sum": 1, "fft_fourstep": 2}, s0),
+            ("hp PSD", da, "kernel", {},
+             lambda: xt.power_spectrum(da, **HP_KW),
+             lambda: par.sharded_power_spectrum(da, mesh, shards, **HP_KW),
+             1e-12, {"dft64": 1}, s0),
+            (f"Welch flagship, {WELCH_SEG}^2 segments", da, "torch", {},
+             lambda: xt.power_spectrum(dac, **seg_kw).mean(seg_dims),
+             lambda: par.sharded_power_spectrum(dac, mesh, shards,
+                                                **seg_kw).mean(seg_dims),
+             2e-6, {}, None),
+            (f"welch along x, seglen {WELCH_SEG}", da, "kernel", {},
+             lambda: xt.welch(da, dim="x", seglen=WELCH_SEG),
+             lambda: par.sharded_welch(da, mesh, {"time": "fp"}, dim="x",
+                                       seglen=WELCH_SEG),
+             2e-6, {"fft_fourstep": 1}, None),
+            ("hilbert along x, sharded on time", da, "kernel", {},
+             lambda: xt.hilbert(da, dim="x"),
+             lambda: par.sharded("hilbert", da, mesh=mesh,
+                                 dim_shards={"time": "fp"}, dim="x"),
+             2e-6, {"fft_fourstep": 2}, None),
+            ("2-D PSD, roundtrip", da2, "kernel", {},
+             lambda: xt.power_spectrum(da2, **MAIN_KW),
+             lambda: par.sharded_power_spectrum(da2, mesh, shards,
+                                                **MAIN_KW),
+             2e-6, {"mirror_psd": 1, "fft_fourstep": 2}, s0),
+            ("2-D PSD, roundtrip, plain mirror", da2, "kernel", plain_mirror,
+             lambda: xt.power_spectrum(da2, **MAIN_KW),
+             lambda: par.sharded_power_spectrum(da2, mesh, shards,
+                                                **MAIN_KW),
+             2e-6, {"fft_fourstep": 2}, s0),
+            ("2-D isotropic PSD, roundtrip, 1024 bins", da2, "kernel", {},
+             lambda: xt.isotropic_power_spectrum(da2, **ISO_KW),
+             lambda: par.sharded_isotropic_power_spectrum(da2, mesh, shards,
+                                                          **ISO_KW),
+             2e-6, {"mirror_psd": 1, "binned_sum": 1, "fft_fourstep": 2},
+             rep),
+        ]
+        for label, x, impl, cfg, plain, shard, lim, need, planned in paths:
+            run_plain = partial(under_config, cfg, impl, plain)
+            run_shard = partial(under_config, cfg, impl, shard)
+            ref = run_plain()
+            got, n = counted(kernels, run_shard)
+            block = got.data.to_local()
+            err = rel_err(block, ref.data)
+            check(isinstance(got.data, torch.distributed.tensor.DTensor)
+                  and got.dims == ref.dims and block.shape == ref.shape
+                  and bool(torch.isfinite(block).all()),
+                  f"sharded {label}: unexpected output {got!r}")
+            check(err <= lim, f"sharded {label} {impl}: rel err {err:.3e} "
+                              f"vs unsharded > {lim}")
+            check(all(n[k] >= v for k, v in need.items()),
+                  f"sharded {label} {impl}: kernel launches {n}, need {need}")
+            placement = tuple(got.data.placements)
+            check(planned is None or placement == planned,
+                  f"sharded {label}: placement {placement}, planned "
+                  f"{planned}")
+            t_plain, t_shard = ab_ms(run_plain, run_shard, rounds=3)
+            log(f"phase 25: sharded {label} {tuple(x.shape)}, fft_impl="
+                f"{impl!r}{' ' + str(cfg) if cfg else ''}: rel err vs unsharded {err:.3e} "
+                f"(limit {lim}), placement {placement}, launches {n}; "
+                f"sharded {t_shard:.3f} ms, unsharded {t_plain:.3f} ms, "
+                f"pencil overhead at one rank {t_shard - t_plain:+.3f} ms "
+                f"[{card}]")
+            device_split(run_shard, f"phase 25: sharded {label}, {impl!r}",
+                         card)
+            if x is da2 or label == "PSD" and impl == "kernel":
+                nccl = nccl_kernels(run_shard)
+                log(f"phase 25: NCCL kernels in the profile of 3 sharded "
+                    f"{label} calls: {sum(nccl.values())} ({nccl}) [{card}]")
+                check(sum(nccl.values()) >= 1,
+                      f"the sharded {label}'s profile holds no NCCL kernel")
+            del ref, got, block
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -1749,6 +1911,12 @@ def main():
     fht_phase(xt, dft64.dft_last, card)
     resample_phase(xt, fft_fourstep.fft_last, card)
     lombscargle_phase(xt, card)
+
+    # ---- phase 25: the sharded path on a one-rank NCCL group --------------
+    sharded_phase(xt, {"mirror_psd": mirror.mirror_psd,
+                       "fft_fourstep": fft_fourstep.fft_last,
+                       "binned_sum": binning.binned_sum,
+                       "dft64": dft64.dft_last}, card)
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]

@@ -291,3 +291,27 @@ def test_binned_sum_checks_its_input():
         binning.binned_sum(torch.zeros(2, 6, device="meta"), plan)
     binning.binned_sum(torch.zeros(2, 6), plan)       # CPU: the plain route
     assert binning.binned_sum.launches == before
+
+
+def test_bin_plan_restrict_to_blocks():
+    """The plan of a block of the grid: itself for the whole grid, else the
+    block's codes, built once; the blocks' sums add up to the whole's."""
+    rng = np.random.RandomState(5)
+    grid, nbins = (12, 10), 7
+    codes = rng.randint(-1, nbins, size=grid)
+    plan = binning.BinPlan(codes.ravel(), nbins)
+    assert plan.restrict(grid, [(0, 12), (0, 10)]) is plan
+    x = torch.as_tensor(rng.randn(3, *grid))
+    total = torch.zeros(3, nbins, dtype=x.dtype)
+    for rows in [(0, 6), (6, 12)]:
+        for cols in [(0, 5), (5, 10)]:
+            sub = plan.restrict(grid, [rows, cols])
+            assert plan.restrict(grid, [rows, cols]) is sub
+            assert sub.nbins == nbins
+            block = x[:, rows[0]:rows[1], cols[0]:cols[1]]
+            npt.assert_array_equal(
+                sub.codes, codes[rows[0]:rows[1], cols[0]:cols[1]].ravel())
+            total += binning.binned_sum(block.reshape(3, -1).contiguous(),
+                                        sub)
+    npt.assert_allclose(total.numpy(), binning.binned_sum_plain(
+        x.reshape(3, -1), plan).numpy(), rtol=1e-13, atol=1e-13)

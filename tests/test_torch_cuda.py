@@ -493,3 +493,86 @@ def test_namesakes_through_kernels(cuda, impl):
         assert got32.data.is_cuda and got64.data.is_cuda
         assert _rel(got32.data.to(ref.dtype), ref.data) <= 2e-6
         assert _rel(got64.data, ref.data) <= 1e-12
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+def test_one_rank_nccl_sharded_psd(cuda, impl):
+    """The sharded path on one card: a one-rank NCCL group, a DeviceMesh
+    over it, the pencil chain's all_to_all through NCCL, and K1 (and K2
+    under "kernel") on the local block; equal to the unsharded PSD, sharded
+    over the batch as planned."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from xrft_tpu_torch.parallel import make_mesh, sharded_power_spectrum
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh({"fp": 1})
+        g = torch.Generator(device=cuda).manual_seed(25)
+        da = LabeledArray(torch.randn((4, 256, 256), generator=g,
+                                      device=cuda),
+                          ("b", "y", "x"),
+                          coords={"y": np.arange(256) * 0.5,
+                                  "x": np.arange(256) * 0.5})
+        kw = dict(dim=["y", "x"], window="hann", detrend="linear")
+        with fft_impl(impl):
+            ref = power_spectrum(da, **kw)
+            k1, k2 = mirror.mirror_psd.launches, fft_fourstep.fft_last.launches
+            got = sharded_power_spectrum(da, mesh, {"y": "fp"}, **kw)
+            torch.cuda.synchronize()
+        assert mirror.mirror_psd.launches == k1 + 1
+        assert (fft_fourstep.fft_last.launches - k2 >= 2) == (impl == "kernel")
+        assert tuple(got.data.placements) == (Shard(0),)
+        assert got.data.to_local().shape == (4, 256, 256)
+        assert _rel(got.data.to_local(), ref.data) <= 2e-6
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mirror_impl", ["kernel", "plain"])
+def test_one_rank_nccl_sharded_2d_roundtrip(cuda, mirror_impl):
+    """A 2-D field with y sharded on a one-rank NCCL group: the chain takes
+    a roundtrip step and y stays sharded.  K1 mirrors the local block (the
+    one rank holds all of y), the plain expansion gathers along y with an
+    NCCL all_to_all, and K3 bins the block; each equal to the unsharded
+    call."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from xrft_tpu_torch.parallel import (make_mesh, sharded_power_spectrum,
+                                         sharded_isotropic_power_spectrum)
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh({"fp": 1})
+        g = torch.Generator(device=cuda).manual_seed(26)
+        da = LabeledArray(torch.randn((256, 256), generator=g, device=cuda),
+                          ("y", "x"), coords={"y": np.arange(256) * 0.5,
+                                              "x": np.arange(256) * 0.5})
+        kw = dict(dim=["y", "x"], window="hann", detrend="linear")
+        with fft_impl("kernel"), psd_mirror_impl(mirror_impl):
+            ref = power_spectrum(da, **kw)
+            k1 = mirror.mirror_psd.launches
+            got = sharded_power_spectrum(da, mesh, {"y": "fp"}, **kw)
+            torch.cuda.synchronize()
+            assert mirror.mirror_psd.launches - k1 == \
+                (1 if mirror_impl == "kernel" else 0)
+            iso_ref = isotropic_power_spectrum(da, **kw)
+            k3 = binning.binned_sum.launches
+            iso = sharded_isotropic_power_spectrum(da, mesh, {"y": "fp"},
+                                                   **kw)
+            torch.cuda.synchronize()
+        assert binning.binned_sum.launches == k3 + 1
+        assert tuple(got.data.placements) == (Shard(0),)
+        assert tuple(iso.data.placements) == (Replicate(),)
+        assert _rel(got.data.to_local(), ref.data) <= 2e-6
+        assert _rel(iso.data.to_local(), iso_ref.data) <= 2e-6
+    finally:
+        dist.destroy_process_group()

@@ -387,8 +387,13 @@ def test_hp_segments_and_other_engines_raise():
     with pytest.raises(ValueError, match="requires declared chunks"):
         xt.ifft(xt.fft(da, dim="x"), dim="freq_x", engine="hp", lag=0.0,
                 chunks_to_segments=True)
+    # the other engine names run, with xrft_tpu's values (float32 data:
+    # 2e-6 of the largest value); an unknown one raises
     for engine in ("xla", "matmul"):
-        with pytest.raises(NotImplementedError, match="sharded path"):
-            xt.power_spectrum(da, dim="x", engine=engine)
-        with pytest.raises(NotImplementedError, match="sharded path"):
-            xt.fft(da, dim="x", engine=engine)
+        for name in ("power_spectrum", "fft"):
+            want = getattr(xrft_tpu, name)(_da(16), dim="x",
+                                           engine=engine).values
+            got = getattr(xt, name)(da, dim="x", engine=engine).values
+            assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+    with pytest.raises(ValueError, match="Unknown fft engine"):
+        xt.fft(da, dim="x", engine="bogus")

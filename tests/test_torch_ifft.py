@@ -245,8 +245,16 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="requires declared chunks"):
         xrft_tpu.ifft(_spectrum((1, 256, 256), np.complex128),
                       chunks_to_segments=True, **BOTH)
-    with pytest.raises(NotImplementedError, match="sharded path"):
-        xt.ifft(da, engine="xla", **BOTH)
+    # the engine names run, with xrft_tpu's values; an unknown one raises
+    ref = _spectrum((1, 256, 256), np.complex128)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        for engine in ("xla", "matmul"):
+            want = xrft_tpu.ifft(ref, engine=engine, **BOTH).values
+            got = xt.ifft(da, engine=engine, **BOTH).values
+            assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    with pytest.raises(ValueError, match="Unknown fft engine"):
+        xt.ifft(da, engine="bogus", **BOTH)
 
 
 def test_sortby_matches_reference():

@@ -174,16 +174,22 @@ def test_fft_matches_reference(kw):
 
 
 def test_unported_options_raise():
-    """The sharded engines are not ported; segments are, and refuse an
-    undeclared segment length as xrft_tpu does."""
+    """Segments refuse an undeclared segment length as xrft_tpu does; the
+    engine names, once unported, give xrft_tpu's values."""
     ref_in, da = _pair((4, 24, 20), np.float64)
     for pkg, arr in ((xt, da), (xrft_tpu, ref_in)):
         with pytest.raises(ValueError, match="requires declared chunks"):
             pkg.power_spectrum(arr, dim="x", chunks_to_segments=True)
         with pytest.raises(ValueError, match="requires chunks_to_segments"):
             pkg.power_spectrum(arr, dim="x", segment_overlap=0.5)
-    with pytest.raises(NotImplementedError, match="sharded path"):
-        xt.power_spectrum(da, dim=["y", "x"], engine="xla")
+    # the engine names run, with xrft_tpu's values; an unknown one raises
+    for engine in ("xla", "matmul"):
+        want = xrft_tpu.power_spectrum(ref_in, dim=["y", "x"],
+                                       engine=engine).values
+        got = xt.power_spectrum(da, dim=["y", "x"], engine=engine).values
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    with pytest.raises(ValueError, match="Unknown fft engine"):
+        xt.power_spectrum(da, dim=["y", "x"], engine="bogus")
     with pytest.raises(ValueError, match="requires declared chunks"):
         xt.ifft(xt.fft(da, dim="x"), dim="freq_x", chunks_to_segments=True)
 

@@ -4,7 +4,9 @@ Counterpart of ``xrft_tpu/config.py``, reduced to the knobs that mean
 something on a CUDA device: which route each hand-written kernel's step
 takes, and the direct/FFT crossover of ``choose_conv_method``.
 :func:`engine_impl` maps the modules' per-call ``engine=`` onto
-``fft_impl``.  Everything else in the JAX package's config
+``fft_impl``, and :func:`set_fft_engine`/:func:`fft_engine` the JAX
+package's process-wide engine names; :func:`complex_mode` keeps its name.
+Everything else in the JAX package's config
 steers TPU-only machinery (split complex, df64) that this package does not
 carry.  :func:`full_fp32` is the one scoped switch of torch's own state:
 float32 products and cuDNN convolutions at full float32 grade for the
@@ -81,12 +83,21 @@ class _Config:
     # H100 the direct route won at 3^2 and 7^2 (about 1 ms against 5.4)
     # and lost from 15^2 on (15.1 ms; 219 at 63^2).
     direct_conv_max: int = 49
+    # The pencil FFT's compute/communication overlap
+    # (xrft_tpu/config.py:67-71): each (all_to_all -> local FFT) pair of
+    # parallel/pencil.py is split along its largest resident axis into this
+    # many chunks, each chunk's all_to_all issued asynchronously so that it
+    # runs while the previous chunk's FFT does.  1 = no chunking.
+    pencil_overlap_chunks: int = 1
 
 
 config = _Config()
 
-# the modules' per-call engine= (xrft_tpu's fft engines) as an fft_impl
-_ENGINE_IMPLS = {"xla": "torch", "matmul": "matmul"}
+# the modules' per-call engine= (xrft_tpu's fft engines) as an fft_impl;
+# "auto" resolves as the JAX package's does on a GPU (xrft_tpu/config.py:
+# 165-172): to XLA's FFT, which is cuFFT here
+_ENGINE_IMPLS = {"auto": "torch", "xla": "torch", "matmul": "matmul"}
+ENGINE_NAMES = tuple(_ENGINE_IMPLS)
 
 
 def _check(value, allowed, what):
@@ -131,6 +142,45 @@ def engine_impl(engine):
         raise ValueError(f"Unknown fft engine {engine!r}")
     with fft_impl(_ENGINE_IMPLS[engine]):
         yield
+
+
+def set_fft_engine(engine: str) -> None:
+    """``xrft_tpu.set_fft_engine``: "auto" and "xla" set ``fft_impl`` to
+    "torch" (cuFFT; the JAX package's GPU resolution), "matmul" to the
+    matmul engine; anything else raises with the JAX package's message."""
+    if engine not in _ENGINE_IMPLS:
+        raise ValueError(f"Unknown fft engine {engine!r}")
+    config.fft_impl = _ENGINE_IMPLS[engine]
+
+
+@contextmanager
+def fft_engine(engine: str):
+    """``xrft_tpu.fft_engine``: :func:`set_fft_engine` for the block; the
+    previous ``fft_impl`` (any of :data:`FFT_IMPLS`, "kernel" included) is
+    restored on the way out."""
+    old = config.fft_impl
+    set_fft_engine(engine)
+    try:
+        yield
+    finally:
+        config.fft_impl = old
+
+
+@contextmanager
+def complex_mode(mode: str):
+    """``xrft_tpu.complex_mode``.  Complex data are native torch complex
+    tensors on every device, so "auto" and "native" change nothing.  The
+    split (re, im) representation is the JAX package's answer to a TPU that
+    runs no complex arithmetic; its ``ComplexPair`` layer is not carried by
+    this package, and "split" raises."""
+    if mode not in ("auto", "native", "split"):
+        raise ValueError(f"Unknown complex mode {mode!r}")
+    if mode == "split":
+        raise NotImplementedError(
+            "complex_mode('split') needs the JAX package's ComplexPair layer, "
+            "which xrft_tpu_torch does not carry: complex data are native "
+            "torch complex tensors on every device")
+    yield
 
 
 @contextmanager

@@ -9,6 +9,12 @@ plus one independent slope per axis,
 
 which is exactly the solution xrft's per-block solver computes
 (``xrft/detrend.py:64-95``), for any number of dims.
+
+Sharded data are detrended on each rank's block: the moments (the sum and
+one centered first moment per axis) are stacked into one local tensor and
+summed across the ranks of the sharded axes in one all_reduce per mesh axis
+(:func:`~xrft_tpu_torch.ops.shards.all_sum`), and the result keeps the
+input's sharding.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from .labeled import LabeledArray
+from .ops import shards
 
 __all__ = ["detrend"]
 
@@ -46,28 +53,36 @@ def detrend(da: LabeledArray, dim, detrend_type="constant") -> LabeledArray:
     if detrend_type == "constant":
         return da - da.mean(dim=dim)
     axes = tuple(da.get_axis_num(d) for d in dim)
-    return da.copy(data=da.data - _linear_fit(da.data, axes))
+    xl = shards.local(da.data)
+    return da.copy(data=shards.like(da.data, xl - _linear_fit(da.data, axes)))
 
 
 def _linear_fit(x: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
     """The least-squares linear trend of x over `axes` (broadcast over the
-    remaining axes), in x's dtype."""
-    fit = torch.mean(x, dim=axes, keepdim=True)
+    remaining axes), in x's dtype; for a sharded ``x``, the trend of its
+    local block."""
+    xl = shards.local(x)
     n_el = 1.0
     for a in axes:
         n_el *= x.shape[a]
+    # centered index coordinates arange(n) - (n-1)/2 (this rank's stretch of
+    # each), built in float64 on the host; their sums of squares stay
+    # float64 scalars
+    coords, moments = [], [torch.sum(xl, dim=axes, keepdim=True)]
     for a in axes:
         n = x.shape[a]
         if n == 1:
             continue
+        lo, hi = shards.local_range(x, a)
         shape = [1] * x.ndim
-        shape[a] = n
-        # centered index coordinate arange(n) - (n-1)/2, built in float64 on
-        # the host; its sum of squares stays a float64 scalar
+        shape[a] = hi - lo
         c64 = np.arange(n) - (n - 1) / 2.0
-        c = torch.as_tensor(c64.reshape(shape), dtype=x.dtype,
-                            device=x.device)
-        css = float(np.sum(c64 ** 2)) * (n_el / n)
-        slope = torch.sum(x * c, dim=axes, keepdim=True) / css
-        fit = fit + slope * c
+        c = torch.as_tensor(c64[lo:hi].reshape(shape), dtype=xl.dtype,
+                            device=xl.device)
+        coords.append((c, float(np.sum(c64 ** 2)) * (n_el / n)))
+        moments.append(torch.sum(xl * c, dim=axes, keepdim=True))
+    sums = shards.all_sum(x, torch.stack(moments), axes)
+    fit = sums[0] / n_el
+    for (c, css), s in zip(coords, sums[1:]):
+        fit = fit + (s / css) * c
     return fit

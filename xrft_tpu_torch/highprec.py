@@ -31,6 +31,7 @@ import torch
 
 from . import coords as ce
 from .labeled import LabeledArray
+from .ops import shards
 from .spectra import _doubling_vector
 from .transform import (_LAG_NONE_WARNING, _direct_lags, _explicit_lags,
                         _ifft_dims, _ifft_resolved, _norm_dim,
@@ -55,11 +56,13 @@ def fft_hp(da: LabeledArray, spacing_tol: float = 1e-3, dim=None,
            detrend: str | None = None, window: str | None = None,
            true_phase: bool = True, true_amplitude: bool = True,
            prefix: str = "freq_", chunks_to_segments: bool = False,
-           segment_overlap=None) -> LabeledArray:
+           segment_overlap=None, engine=None) -> LabeledArray:
     """:func:`~xrft_tpu_torch.fft` in float64/complex128
     (``xrft_tpu/highprec.py::fft_hp``): the data are cut into segments
     (``chunks_to_segments``) and promoted first, then detrended, windowed
-    and transformed at that precision."""
+    and transformed at that precision.  ``engine`` is None or the pencil
+    engine of the sharded path, which moves the complex128 data through
+    its chain."""
     dim = _norm_dim(da, dim)
     if segment_overlap is not None and not chunks_to_segments:
         raise ValueError("segment_overlap requires chunks_to_segments=True")
@@ -68,7 +71,7 @@ def fft_hp(da: LabeledArray, spacing_tol: float = 1e-3, dim=None,
     return fft(_promote(da), spacing_tol, dim=dim, real_dim=real_dim,
                shift=shift, detrend=detrend, window=window,
                true_phase=true_phase, true_amplitude=true_amplitude,
-               prefix=prefix)
+               prefix=prefix, engine=engine)
 
 
 def ifft_hp(daft: LabeledArray, spacing_tol: float = 1e-3, dim=None,
@@ -163,14 +166,16 @@ def _one_sided(x, daft, da, real_dim, updated, kwargs):
     parity is the segment length's under ``chunks_to_segments``
     (``xrft_tpu/highprec.py:636-645``)."""
     fr = next(d for d in updated if d.endswith(real_dim))
+    ax = daft.get_axis_num(fr)
     shape = [1] * x.ndim
-    shape[daft.get_axis_num(fr)] = -1
+    shape[ax] = -1
     n = da.sizes[real_dim]
     if kwargs.get("chunks_to_segments"):
         n = (da.attrs.get("_chunks") or {}).get(real_dim, n)
-    f = torch.as_tensor(_doubling_vector(n),
+    lo, hi = shards.local_range(x, ax)
+    f = torch.as_tensor(_doubling_vector(n)[lo:hi],
                         dtype=torch.float64, device=x.device)
-    return x * f.reshape(shape)
+    return shards.like(x, shards.local(x) * f.reshape(shape))
 
 
 def power_spectrum_hp(da: LabeledArray, dim=None,

@@ -7,6 +7,13 @@ built once on the host (:mod:`.ops.binning`) and kept in a small cache keyed
 by the coordinate values and the bin count; the per-bin sums run on the
 data's device through kernel K3 (``config.binned_sum_impl == "kernel"``) or
 its plain version, batched over every other dim.
+
+A sharded spectrum is binned on each rank's block by the same route, K3
+included: with the whole plan when its spectral dims are resident (the
+pencil chain parks the sharding on a batch dim), else with the plan of the
+rank's stretch of the grid (built once per stretch and kept with the
+plan), the partial sums then added across its ranks in one all_reduce per
+mesh axis.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 
 from .config import BINNED_SUM_IMPLS, config
 from .labeled import Coord, LabeledArray
+from .ops import shards
 from .ops.binning import (BinPlan, binned_mean_np, binned_sum,
                           binned_sum_plain, cut_codes)
 from .spectra import cross_spectrum, power_spectrum
@@ -62,6 +70,29 @@ def _binned(data, plan):
     return (binned_sum if impl == "kernel" else binned_sum_plain)(data, plan)
 
 
+def _binned_blocks(x, n_other: int, plan: BinPlan):
+    """Per-bin sums of ``x`` (other dims first, then the spectral dims in
+    the plan's order), sharded like ``x``'s other dims.  :func:`_binned`
+    (K3 on a CUDA block) runs on the local block with the plan of this
+    rank's stretch of the grid (the whole plan when the spectral dims are
+    resident, or sharded over mesh axes of one rank); the partial sums are
+    then added across the ranks that hold the other stretches (nothing to
+    add for unsharded data)."""
+    spectral = range(n_other, x.ndim)
+    sub = plan.restrict(x.shape[n_other:],
+                        [shards.local_range(x, a) for a in spectral])
+    xl = shards.local(x)
+    block = _binned(
+        xl.reshape(tuple(xl.shape[:n_other]) + (sub.size,)).contiguous(), sub)
+    shards.all_sum(x, block, spectral)
+    if not shards.is_sharded(x):
+        return block
+    return shards.wrap(x.device_mesh, block,
+                       {a: m for a, m in shards.axis_map(x).items()
+                        if a < n_other},
+                       tuple(x.shape[:n_other]) + (plan.nbins,))
+
+
 def isotropize(ps: LabeledArray, fftdim, nfactor=4, truncate=True,
                complx=False) -> LabeledArray:
     """Isotropize an N-D (cross) spectrum by an azimuthal (2-D) or
@@ -99,11 +130,9 @@ def isotropize(ps: LabeledArray, fftdim, nfactor=4, truncate=True,
 
     other = [d for d in ps.dims if d not in fftdim]
     ordered = ps.transpose(*(other + own))
-    data = ordered.data.reshape(
-        tuple(ordered.shape[:len(other)]) + (plan.size,)).contiguous()
-    iso = _binned(data, plan)
+    iso = _binned_blocks(ordered.data, len(other), plan)
     if not complx and iso.is_complex():
-        iso = iso.real.contiguous()
+        iso = shards.like(iso, shards.local(iso).real.contiguous())
 
     out_coords = {
         c: ps.coords[c].copy()

@@ -4,6 +4,11 @@ Counterpart of ``xrft_tpu/labeled.py``: bulk data is a ``torch.Tensor`` on
 the device it was given; dims, coordinates and attrs are host-side metadata
 (coordinates are always host numpy, as in the reference).  Only the subset
 of the xarray.DataArray surface that the ported slice uses is here.
+
+The data may be a sharded ``DTensor`` (:mod:`.parallel`): arithmetic,
+reductions and ``sortby`` then work on each rank's local block
+(:mod:`.ops.shards`) and keep the array sharded; the coordinates stay
+global.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+from .ops import shards
 
 __all__ = ["Coord", "LabeledArray", "resolve_device"]
 
@@ -155,8 +162,12 @@ class LabeledArray:
     @property
     def values(self) -> np.ndarray:
         """A host numpy copy of the data (lazy conjugate and negative views
-        resolved)."""
-        return self.data.detach().cpu().resolve_conj().resolve_neg().numpy()
+        resolved).  Sharded data are gathered first (``full_tensor``, a
+        collective: every rank of the mesh must ask)."""
+        data = self.data
+        if shards.is_sharded(data):
+            data = data.full_tensor()
+        return data.detach().cpu().resolve_conj().resolve_neg().numpy()
 
     def get_axis_num(self, dim):
         if isinstance(dim, (list, tuple)):
@@ -207,9 +218,8 @@ class LabeledArray:
             order = np.argsort(out.coords[d].values, kind="stable")
             if np.array_equal(order, np.arange(order.size)):
                 continue
-            nxt = out.copy(data=out.data.index_select(
-                out.get_axis_num(d),
-                torch.as_tensor(order, device=out.data.device)))
+            nxt = out.copy(data=shards.take(out.data, out.get_axis_num(d),
+                                            order))
             for cname, c in nxt.coords.items():
                 if d in c.dims:
                     nxt.coords[cname] = c.copy(
@@ -292,7 +302,9 @@ class LabeledArray:
         else:
             dims = list(dim)
         out = LabeledArray.__new__(LabeledArray)
-        out.data = fn(self.data, dim=[self.dims.index(d) for d in dims])
+        axes = [self.dims.index(d) for d in dims]
+        out.data = _sharded_reduce(self.data, fn, axes) \
+            if shards.is_sharded(self.data) else fn(self.data, dim=axes)
         out.dims = tuple(d for d in self.dims if d not in dims)
         out.attrs = dict(self.attrs)
         out.name = self.name
@@ -323,10 +335,14 @@ class LabeledArray:
                         f"conflicting sizes for dim {d!r}: "
                         f"{self.sizes[d]} vs {other.sizes[d]}"
                     )
-            a = _expand_to(self, out_dims)
-            b = _expand_to(other, out_dims)
             out = LabeledArray.__new__(LabeledArray)
-            out.data = op(b, a) if reflexive else op(a, b)
+            if shards.is_sharded(self.data) or shards.is_sharded(other.data):
+                out.data = _sharded_binary(self, other, out_dims, op,
+                                           reflexive)
+            else:
+                a = _expand_to(self, out_dims)
+                b = _expand_to(other, out_dims)
+                out.data = op(b, a) if reflexive else op(a, b)
             out.dims = tuple(out_dims)
             # user attrs and the name drop (xarray keep_attrs=False parity),
             # but declared chunk lengths are structural, like dask chunks
@@ -386,3 +402,61 @@ def _expand_to(da: LabeledArray, out_dims: Sequence[str]) -> torch.Tensor:
     data = da.data.permute([da.dims.index(d) for d in own])
     return data.reshape([da.sizes[d] if d in da.dims else 1
                          for d in out_dims])
+
+
+def _sharded_reduce(x, fn, axes) -> torch.Tensor:
+    """``fn`` (torch.sum or torch.mean) of the DTensor ``x`` over ``axes``:
+    the local sum, one all_reduce per mesh axis of a reduced sharded axis,
+    the mean's division by the global count; the result keeps the
+    remaining axes' shards and is replicated over the reduced ones."""
+    amap = shards.axis_map(x)
+    block = torch.sum(shards.local(x), dim=axes)
+    shards.all_sum(x, block, axes)
+    if fn is torch.mean:
+        block = block / float(np.prod([x.shape[a] for a in axes]))
+    keep = [a for a in range(x.ndim) if a not in axes]
+    return shards.wrap(x.device_mesh, block,
+                       {keep.index(a): m for a, m in amap.items() if a in keep},
+                       [x.shape[a] for a in keep])
+
+
+def _sharded_binary(left, right, out_dims, op, reflexive) -> torch.Tensor:
+    """``op`` of two LabeledArrays, one or both sharded, on local blocks:
+    every dim sharded in either operand is sharded over the same mesh axis
+    in the result, and the other operand's data along it are cut to this
+    rank's block (a plain tensor's by slicing, no exchange).  Two operands
+    that shard one dim differently, or live on two meshes, raise."""
+    mesh, sharded = None, {}
+    for da in (left, right):
+        if not shards.is_sharded(da.data):
+            continue
+        if mesh is not None and da.data.device_mesh != mesh:
+            raise ValueError("operands sharded over two different meshes")
+        mesh = da.data.device_mesh
+        for a, m in shards.axis_map(da.data).items():
+            d = da.dims[a]
+            if sharded.setdefault(d, m) != m:
+                raise ValueError(f"dim {d!r} is sharded over mesh axis "
+                                 f"{sharded[d]!r} in one operand and {m!r} "
+                                 f"in the other")
+    sizes = {**right.sizes, **left.sizes}
+    parts = shards.mesh_shape(mesh)
+
+    def block(da):
+        data = shards.local(da.data)
+        own = shards.axis_map(da.data)
+        for a, d in enumerate(da.dims):
+            if d in sharded and a not in own:
+                lo, hi = shards.chunk_range(
+                    sizes[d], parts[sharded[d]],
+                    mesh.get_local_rank(sharded[d]))
+                data = data.narrow(a, lo, hi - lo)
+        loc = LabeledArray.__new__(LabeledArray)
+        loc.data, loc.dims = data, da.dims
+        return _expand_to(loc, out_dims)
+
+    a, b = block(left), block(right)
+    out = op(b, a) if reflexive else op(a, b)
+    return shards.wrap(mesh, out,
+                       {out_dims.index(d): m for d, m in sharded.items()},
+                       [sizes[d] for d in out_dims])

@@ -185,6 +185,21 @@ class BinPlan:
     def size(self) -> int:
         return self.codes.size
 
+    def restrict(self, grid, ranges) -> "BinPlan":
+        """The plan of the block ``[lo, hi)`` per axis (``ranges``) of the
+        points read as a C-order array of shape ``grid``: itself when the
+        block is the whole grid, else a plan of the block's codes, built
+        once and kept."""
+        grid, ranges = tuple(grid), tuple(ranges)
+        if ranges == tuple((0, n) for n in grid):
+            return self
+        key = ("sub", grid, ranges)
+        if key not in self._host:
+            block = self.codes.reshape(grid)[
+                tuple(slice(lo, hi) for lo, hi in ranges)]
+            self._host[key] = BinPlan(np.ascontiguousarray(block), self.nbins)
+        return self._host[key]
+
     def host(self) -> dict:
         """K3's tile plan of ``TILE`` points a tile: local (uint16 offsets
         into their tile, the kept points in (tile, code) order), run_start

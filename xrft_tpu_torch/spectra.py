@@ -10,6 +10,12 @@ the mirror are one pass of kernel K1 (:mod:`.ops.mirror`); every other
 geometry, every cross spectrum, and ``"plain"`` take the general expansion
 :func:`_hermitian_expand`.  ``engine="hp"`` routes both spectra to
 :mod:`.highprec`.
+
+Sharded data (the pencil engine of :mod:`.parallel`) take the same routes on
+each rank's block: K1 runs on the local block when the pencil chain's
+planned final layout leaves the two transform axes resident (or sharded
+over mesh axes of one rank), and the general expansion otherwise, with its mirror gathers made explicit
+(:mod:`.ops.shards`).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 from . import coords as ce
 from .config import MIRROR_IMPLS, config
 from .labeled import Coord, LabeledArray
-from .ops import mirror
+from .ops import mirror, shards
 from .transform import _dim_coord, _real_flag_warning, _stack_segments, fft
 
 __all__ = ["power_spectrum", "cross_spectrum", "cross_phase", "coherence",
@@ -128,16 +134,49 @@ def _norm_dim_list(da, dim):
     return list(dim)
 
 
-def _half_spectrum_dim(da, dim, real_dim):
+def _is_hp(engine) -> bool:
+    """``engine`` asks for the float64 path: "hp", or the pencil engine
+    built for it (``parallel.api``)."""
+    return engine == "hp" or getattr(engine, "precision", None) == "hp"
+
+
+def _half_spectrum_dim(da, dim, real_dim, engine=None):
     """The transform dim to compute one-sided for a two-sided power spectrum
     of real data (Hermitian symmetry halves the work on every other
-    transform axis), or None."""
+    transform axis), or None.  Under the pencil engine the half dim must be
+    unsharded and trailing (``xrft_tpu/spectra.py:147-153``)."""
     if real_dim is not None or da.dtype.is_complex:
         return None
     dims = _norm_dim_list(da, dim)
     if len(dims) < 2:
         return None
-    return dims[-1]
+    half = dims[-1]
+    if callable(engine):
+        dim_shards = getattr(engine, "dim_shards", None)
+        if dim_shards is None or dim_shards.get(half) or da.dims[-1] != half:
+            return None
+    return half
+
+
+def _planned_sharding(da, dims, half_dim, engine) -> dict:
+    """{array axis: mesh axis} of the one-sided transform's output that are
+    split across ranks: the pencil chain's planned final layout under the
+    pencil engine (``xrft_tpu/spectra.py:203-225``) less the mesh axes of
+    one rank, whose block is the whole axis; nothing otherwise."""
+    if not callable(engine):
+        return {}
+    from .parallel.mesh import axis_links
+    from .parallel.pencil import plan_forward_layout
+
+    mesh = engine.mesh
+    sizes = shards.mesh_shape(mesh)
+    axis_sharding = {i: engine.dim_shards[d] for i, d in enumerate(da.dims)
+                     if engine.dim_shards.get(d)}
+    chain = [da.get_axis_num(d) for d in dims if d != half_dim]
+    _, final = plan_forward_layout(
+        da.shape, chain, axis_sharding, sizes,
+        banned=(len(da.dims) - 1,), axis_links=axis_links(mesh))
+    return {a: m for a, m in final.items() if sizes[m] > 1}
 
 
 def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
@@ -155,34 +194,39 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
     column n - k with every other transform axis negated, which on its
     (possibly shifted) grid is the permutation o -> (2h - o) mod n.  Index
     maps are host constants; the data moves by ``index_select``.  Any
-    geometry (``xrft_tpu/spectra.py:168-272``)."""
+    geometry (``xrft_tpu/spectra.py:168-272``).
+
+    Sharded data: the half axis is resident (the one-sided route requires
+    it), so its gathers are local; a mirrored axis that the chain left
+    sharded is gathered explicitly, one exchange (:func:`shards.take`), as
+    ``xrft_tpu/spectra.py:249-251`` declares its gather's sharding."""
     n = da.sizes[half_dim]
     fd = {d: ce.freq_dim_name(d, kwargs.get("prefix", "freq_")) for d in dims}
     ax_half = daft.get_axis_num(fd[half_dim])
-    dev = half.device
 
     h = n // 2 if shift else 0
     ks = (np.arange(n) - h) % n
     mirrored = ks > n // 2
     src = np.where(mirrored, n - ks, ks)
 
-    full = half.index_select(ax_half, torch.as_tensor(src, device=dev))
+    full = shards.take(half, ax_half, src)
     pos = np.nonzero(mirrored)[0]
     if pos.size:
-        pos_t = torch.as_tensor(pos, device=dev)
-        piece = full.index_select(ax_half, pos_t)
+        piece = shards.take(full, ax_half, pos)
         for d in dims:
             if d == half_dim:
                 continue
             na = daft.sizes[fd[d]]
             ha = na // 2 if shift else 0
-            perm = (2 * ha - np.arange(na)) % na
-            piece = piece.index_select(daft.get_axis_num(fd[d]),
-                                       torch.as_tensor(perm, device=dev))
+            piece = shards.take(piece, daft.get_axis_num(fd[d]),
+                                (2 * ha - np.arange(na)) % na)
+        piece = shards.local(piece)
         if conj_mirror:
             # materialised, so the copy never meets a lazy conj view
             piece = torch.conj_physical(piece)
-        full.index_copy_(ax_half, pos_t, piece)
+        # the piece has the block layout of full: one local copy
+        shards.local(full).index_copy_(
+            ax_half, torch.as_tensor(pos, device=piece.device), piece)
 
     return LabeledArray(full, dims=daft.dims,
                         coords=_two_sided_coords(daft, da, dims, half_dim,
@@ -244,10 +288,15 @@ def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):
         for d in dims])) ** 2
     scale = amp2 if prescale is None else amp2 * prescale
 
-    if _mirror_kernel_applicable(da, dims, half_dim):
-        # K1 takes the unshifted half spectrum and does the y-fftshift itself
+    planned = _planned_sharding(da, dims, half_dim, kwargs.get("engine"))
+    if _mirror_kernel_applicable(da, dims, half_dim) and \
+            not {len(da.dims) - 2, len(da.dims) - 1} & set(planned):
+        # K1 takes the unshifted half spectrum and does the y-fftshift
+        # itself; sharded data run it on each rank's block, whose two
+        # transform axes are resident
         daft = fft(da, dim=dims, real_dim=half_dim, shift=False, **kwargs)
-        full = mirror.mirror_psd(daft.data.contiguous(), n_full, shift, scale)
+        full = shards.like(daft.data, mirror.mirror_psd(
+            shards.local(daft.data).contiguous(), n_full, shift, scale))
         return LabeledArray(
             full, dims=daft.dims,
             coords=_two_sided_coords(daft, da, dims, half_dim, kwargs,
@@ -329,10 +378,11 @@ def power_spectrum(
         real_dim = kwargs.get("real")
         warnings.warn(_real_flag_warning, FutureWarning)
 
-    if kwargs.get("engine") == "hp":
+    if _is_hp(kwargs.get("engine")):
         from .highprec import power_spectrum_hp
 
-        kwargs.pop("engine")
+        if kwargs.get("engine") == "hp":
+            kwargs.pop("engine")
         kwargs.pop("real", None)
         return power_spectrum_hp(da, dim=dim, real_dim=real_dim,
                                  scaling=scaling,
@@ -344,7 +394,7 @@ def power_spectrum(
 
     (da,), dim, kwargs = _maybe_stack_segments((da,), dim, kwargs)
 
-    half = _half_spectrum_dim(da, dim, real_dim)
+    half = _half_spectrum_dim(da, dim, real_dim, kwargs.get("engine"))
     if half is not None:
         prescale = _density_prescale(da, dim, scaling, window_correction,
                                      kwargs)
@@ -391,10 +441,11 @@ def cross_spectrum(
     kwargs, scaling = _pop_density(kwargs, "cross_spectrum", scaling)
     kwargs.update({"true_amplitude": True})
 
-    if kwargs.get("engine") == "hp":
+    if _is_hp(kwargs.get("engine")):
         from .highprec import cross_spectrum_hp
 
-        kwargs.pop("engine")
+        if kwargs.get("engine") == "hp":
+            kwargs.pop("engine")
         kwargs.pop("real", None)
         return cross_spectrum_hp(da1, da2, dim=dim, real_dim=real_dim,
                                  scaling=scaling,
@@ -406,8 +457,10 @@ def cross_spectrum(
 
     (da1, da2), dim, kwargs = _maybe_stack_segments((da1, da2), dim, kwargs)
 
-    half = _half_spectrum_dim(da1, dim, real_dim)
-    if half is not None and _half_spectrum_dim(da2, dim, real_dim) == half:
+    engine = kwargs.get("engine")
+    half = _half_spectrum_dim(da1, dim, real_dim, engine)
+    if half is not None and \
+            _half_spectrum_dim(da2, dim, real_dim, engine) == half:
         prescale = _density_prescale(da1, dim, scaling, window_correction,
                                      kwargs)
         return _cross_spectrum_via_rfft(da1, da2, dim, half, kwargs,
@@ -593,11 +646,21 @@ def welch(da, dim=None, seglen=None, segment_overlap=None, window="hann",
     input; a partial last segment is dropped and a too-long ``seglen``
     clamped, each with a warning.  Composes with ``engine="hp"`` and extra
     batch dims."""
+    return _welch_impl(power_spectrum, da, dim, seglen, segment_overlap,
+                       window, detrend, scaling, window_correction, real_dim,
+                       kwargs)
+
+
+def _welch_impl(power_fn, da, dim, seglen, segment_overlap, window, detrend,
+                scaling, window_correction, real_dim, kwargs) -> LabeledArray:
+    """The Welch estimate shared by :func:`welch` and
+    ``parallel.sharded_welch`` (``xrft_tpu/spectra.py:857-885``):
+    ``power_fn`` is the power spectrum to average."""
     da, dim, seglen, ov = _stft_plan(da, dim, seglen, segment_overlap, 2,
                                      "welch")
     if real_dim == "auto":
         real_dim = dim if _is_real_input(da) else None
-    ps = power_spectrum(
+    ps = power_fn(
         da, dim=[dim], real_dim=real_dim, scaling=scaling,
         window_correction=window_correction, window=window,
         detrend=detrend, chunks_to_segments=True,
@@ -630,6 +693,16 @@ def csd(da1, da2, dim=None, seglen=None, segment_overlap=None,
     zero-padded to the longer.  It follows scipy's conjugation,
     ``conj(F(x)) F(y)``, so it is the conjugate of the averaged
     :func:`cross_spectrum`."""
+    return _csd_impl(cross_spectrum, da1, da2, dim, seglen, segment_overlap,
+                     window, detrend, scaling, window_correction, real_dim,
+                     true_phase, kwargs)
+
+
+def _csd_impl(cross_fn, da1, da2, dim, seglen, segment_overlap, window,
+              detrend, scaling, window_correction, real_dim, true_phase,
+              kwargs) -> LabeledArray:
+    """The csd estimate shared by :func:`csd` and ``parallel.sharded_csd``:
+    ``cross_fn`` is the cross spectrum to average."""
     if tuple(da1.dims) != tuple(da2.dims):
         raise ValueError("da1 and da2 must have the same dimensions!")
     dim = _norm_1d_dim(da1, dim, "csd")
@@ -646,7 +719,7 @@ def csd(da1, da2, dim=None, seglen=None, segment_overlap=None,
     if real_dim == "auto":
         real_dim = dim if (_is_real_input(da1)
                            and _is_real_input(da2)) else None
-    cs = cross_spectrum(
+    cs = cross_fn(
         da1, da2, dim=[dim], real_dim=real_dim, scaling=scaling,
         window_correction=window_correction, window=window,
         detrend=detrend, chunks_to_segments=True, true_phase=true_phase,

@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from . import coords as ce
+from .config import ENGINE_NAMES, engine_impl
 from .labeled import Coord, LabeledArray
-from .ops import fft_core
+from .ops import fft_core, shards
 
 __all__ = ["fft", "ifft", "dft", "idft"]
 
@@ -28,17 +29,42 @@ _real_flag_warning = (
 )
 
 
-def _not_ported(what: str, slice_: str):
-    return NotImplementedError(
-        f"{what} is not ported to xrft_tpu_torch yet; it comes with the "
-        f"{slice_} slice (ROADMAP.md, Queue 1)"
-    )
-
-
 def _check_engine(engine):
-    """Every ``engine`` but None and "hp" belongs to the sharded slice."""
-    if engine is not None:
-        raise _not_ported(f"engine={engine!r}", "sharded path")
+    """``engine`` is None, an engine name of ``config.engine_impl``, "hp"
+    (handled by the caller) or a callable (the pencil engine of
+    :mod:`.parallel`); anything else raises the JAX package's message."""
+    if engine is None or callable(engine) or engine in ENGINE_NAMES:
+        return
+    raise ValueError(f"Unknown fft engine {engine!r}")
+
+
+def _run_core(data, axes, kind, engine, pre_shift_axes=(),
+              post_shift_axes=(), post_kind="fftshift"):
+    """The core N-D transform (``xrft_tpu/transform.py:30-52``).  An engine
+    name runs :mod:`.ops.fft_core` under the ``fft_impl`` it names
+    (``config.engine_impl``), which absorbs or applies the shifts itself.  A
+    callable ``engine(data, axes, kind)`` is the pencil engine of
+    :mod:`.parallel`; it gets explicit shifts here, local on resident axes
+    and one exchange on a sharded one (:mod:`.ops.shards`)."""
+    if callable(engine):
+        if pre_shift_axes:
+            data = shards.ifftshift(data, list(pre_shift_axes))
+        out = engine(data, axes, kind)
+        if post_shift_axes:
+            post = shards.fftshift if post_kind == "fftshift" \
+                else shards.ifftshift
+            out = post(out, list(post_shift_axes))
+        return out
+    if shards.is_sharded(data):
+        raise ValueError(
+            "sharded data need the pencil engine: call the sharded_* "
+            "functions of xrft_tpu_torch.parallel")
+    fn = {"fft": fft_core.fftn, "ifft": fft_core.ifftn,
+          "rfft": fft_core.rfftn, "irfft": fft_core.irfftn}[kind]
+    kw = {"post_kind": post_kind} if kind in ("ifft", "irfft") else {}
+    with engine_impl(engine):
+        return fn(data, axes, pre_shift_axes=pre_shift_axes,
+                  post_shift_axes=post_shift_axes, **kw)
 
 
 def _move_to_end(lst, el):
@@ -211,9 +237,10 @@ def fft(
       samples, float fraction of the segment length, or a per-dim dict)
       makes them overlap, as scipy.signal.welch's ``noverlap``.
     - ``engine="hp"`` runs every stage in float64/complex128
-      (:func:`~xrft_tpu_torch.highprec.fft_hp`).
-
-    Any other ``engine`` is not ported yet and raises NotImplementedError.
+      (:func:`~xrft_tpu_torch.highprec.fft_hp`); "auto", "xla" and "matmul"
+      run the transform under the ``fft_impl`` they name
+      (``config.engine_impl``); a callable is the pencil engine of the
+      sharded path (:mod:`~xrft_tpu_torch.parallel`).
     """
     dim = _norm_dim(da, dim)
 
@@ -288,15 +315,15 @@ def fft(
             if d in da.coords and da.coords[d].values[-1] < da.coords[d].values[0]
         ]
         if reversed_axes:
-            data = torch.flip(data, reversed_axes)
+            data = shards.flip(data, reversed_axes)
 
     if nonreal_shift:
         post_axes = [a for a, d in zip(axis_num, dim) if d != real_dim]
     else:
         post_axes = axis_num if shift else ()
-    core = fft_core.fftn if real_dim is None else fft_core.rfftn
-    f = core(data, axis_num, pre_shift_axes=axis_num if true_phase else (),
-             post_shift_axes=post_axes)
+    f = _run_core(data, axis_num, "fft" if real_dim is None else "rfft",
+                  engine, pre_shift_axes=axis_num if true_phase else (),
+                  post_shift_axes=post_axes)
 
     k = ce.freq_grids(N, delta_x, real_dim is not None, shift)
     if nonreal_shift:
@@ -390,8 +417,8 @@ def ifft(
     ``real_dim`` takes an irfft along that dim.  ``chunks_to_segments``
     cuts declared chunks into segments after the phase factor, as
     ``xrft_tpu.ifft``.  ``engine="hp"`` runs in complex128
-    (:func:`~xrft_tpu_torch.highprec.ifft_hp`); any other ``engine`` raises
-    NotImplementedError.
+    (:func:`~xrft_tpu_torch.highprec.ifft_hp`); the other engines are those
+    of :func:`fft`.
     """
     dim = _norm_dim(daft, dim)
 
@@ -414,7 +441,7 @@ def ifft(
         lag = _explicit_lags(daft, dim, lag, warn=not true_phase)
     return _ifft_resolved(daft, spacing_tol, dim, real_dim, shift,
                           true_phase, true_amplitude, prefix, lag,
-                          chunks_to_segments)
+                          chunks_to_segments, engine)
 
 
 def _ifft_dims(daft: LabeledArray, dim, real_dim) -> list:
@@ -433,7 +460,7 @@ def _ifft_dims(daft: LabeledArray, dim, real_dim) -> list:
 
 def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
                    true_phase, true_amplitude, prefix, lag,
-                   chunks_to_segments=False) -> LabeledArray:
+                   chunks_to_segments=False, engine=None) -> LabeledArray:
     """The body of :func:`ifft` once ``dim`` is ordered and ``lag`` holds one
     number per dim (``xrft_tpu/transform.py:480-615``)."""
     if true_phase:
@@ -515,8 +542,8 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
             if amt == (-(n_d // 2)) % n_d:
                 axis_shift.append(ax)
             elif amt:
-                data = torch.roll(data, amt if amt <= n_d // 2 else amt - n_d,
-                                  ax)
+                data = shards.roll(
+                    data, {ax: amt if amt <= n_d // 2 else amt - n_d})
         else:
             axis_shift.append(ax)
 
@@ -528,9 +555,9 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
     else:
         post_axes, post_kind = (), "fftshift"
 
-    core = fft_core.ifftn if real_dim is None else fft_core.irfftn
-    f = core(data, axis_num, pre_shift_axes=axis_shift,
-             post_shift_axes=post_axes, post_kind=post_kind)
+    f = _run_core(data, axis_num, "ifft" if real_dim is None else "irfft",
+                  engine, pre_shift_axes=axis_shift,
+                  post_shift_axes=post_axes, post_kind=post_kind)
 
     k = ce.ifreq_grids(N, delta_x, real_dim is not None, shift)
 
