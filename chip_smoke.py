@@ -38,7 +38,14 @@ PyTorch version on the card, and drives four paths at full width:
     oaconvolve, resample_poly, decimate, savgol_filter and upfirdn on the
     8 x 2^22 signal, zoom_fft and czt, fht/ifht of 4096 float64 profiles,
     resample, and lombscargle of 64 x 65,536 samples at 16,384 frequencies.
-    Their K2 and K4 launches are counted from 0 around each "kernel" run.
+    Their K2 and K4 launches are counted from 0 around each "kernel" run;
+  * the sharded path on a one-rank NCCL group (phase 25);
+  * the matmul engine's pair path under ``fft_impl="matmul"`` (phase 26):
+    the inverse flagship's irfftn, the PSD and the shifted fft of a GLORYS12
+    stack (8 x 2041 x 4320; 2041 = 13 x 157 takes K2 and Bluestein), DST-I
+    at 8194 points and the istft of 8 x 2^22 samples, each with its K1-K5
+    launches counted and checked, and K2 at those shapes against cuFFT and
+    the engine's einsum recursion.
 
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
@@ -101,6 +108,13 @@ FIR_TAPS = 255
 FHT_SHAPE = (4096, 4096)
 RESAMPLE_NUM = 3000
 LS_SHAPE, LS_FREQS = (64, 65536), 16384
+# the matmul engine's pair path: 8 daily fields of Copernicus Marine's
+# GLORYS12V1 global 1/12 degree reanalysis grid (GLOBAL_MULTIYEAR_PHY_001_030:
+# 4320 lon x 2041 lat, 2041 = 13 x 157), and K2's shapes on it (the packed
+# rfft along lon at 2160, lat at 2041, the Bluestein transforms at 512)
+GLORYS_SHAPE = (8, 2041, 4320)
+GLORYS_KW = dict(dim=["lat", "lon"], window="hann", detrend="linear")
+PAIR_K2_SHAPES = ((16328, 2160), (17288, 2041), (449280, 512))
 # H100 SXM peaks (NVIDIA's data sheet): HBM3, FP32 outside the tensor cores,
 # FP64 on the tensor cores, dense TF32 on the tensor cores
 HBM_BYTES_S, FP32_FLOP_S, FP64_FLOP_S = 3.35e12, 67e12, 67e12
@@ -677,6 +691,28 @@ def hp_phase(xt, kernels, card):
     return launches["dft64"]
 
 
+def inverse_spectrum():
+    """The inverse flagship's input: the half spectrum of a real field (y in
+    natural order), Hermitian, as the inverse assumes (cuFFT's c2r does not
+    drop the imaginary parts of a half spectrum that is not, as numpy's
+    irfft does)."""
+    n = INV_SHAPE[1]
+    return torch.fft.rfftn(field(INV_SHAPE[:2] + (n,), 13), dim=(1, 2))
+
+
+def inverse_half(xt, data, order):
+    """The half spectrum as the labelled input of ``ifft``, freq_y in
+    natural ("natural") or fftshifted ("shifted") order: the same spectrum,
+    data and freq_y shifted together."""
+    n = INV_SHAPE[1]
+    fy = np.fft.fftfreq(n, 0.5)
+    if order == "shifted":
+        data, fy = torch.fft.fftshift(data, dim=1), np.fft.fftshift(fy)
+    return xt.LabeledArray(data, dims=("time", "freq_y", "freq_x"),
+                           coords={"freq_y": fy,
+                                   "freq_x": np.fft.rfftfreq(n, 0.5)})
+
+
 def inverse_phase(xt, fft_fourstep, card):
     """The inverse flagship under cuFFT and K2 (sign +1), against the same
     call in complex128, with freq_y fftshifted and in natural order (the
@@ -684,21 +720,8 @@ def inverse_phase(xt, fft_fourstep, card):
     from xrft_tpu_torch.config import fft_impl
 
     n = INV_SHAPE[1]
-    fy = np.fft.fftfreq(n, 0.5)
-    fx = np.fft.rfftfreq(n, 0.5)
-    # the half spectrum of a real field (y in natural order): Hermitian, as
-    # the inverse assumes (cuFFT's c2r does not drop the imaginary parts of
-    # a half spectrum that is not, as numpy's irfft does)
-    F = torch.fft.rfftn(field(INV_SHAPE[:2] + (n,), 13), dim=(1, 2))
-
-    def half(data, order):
-        # fftshifted order holds the same spectrum: data and freq_y shifted
-        if order == "shifted":
-            data = torch.fft.fftshift(data, dim=1)
-        return xt.LabeledArray(
-            data, dims=("time", "freq_y", "freq_x"),
-            coords={"freq_y": np.fft.fftshift(fy) if order == "shifted"
-                    else fy, "freq_x": fx})
+    F = inverse_spectrum()
+    half = partial(inverse_half, xt)
 
     with fft_impl("torch"):
         ref = xt.ifft(half(F.to(torch.complex128), "shifted"), **INV_KW)
@@ -1677,6 +1700,131 @@ def sharded_phase(xt, kernels, card):
         dist.destroy_process_group()
 
 
+def glorys(xt, data):
+    """A (time, lat, lon) stack on GLORYS12's 1/12 degree grid: lat from
+    -80 to 90, lon from -180."""
+    B, nlat, nlon = data.shape
+    return xt.LabeledArray(
+        data, dims=("time", "lat", "lon"),
+        coords={"time": np.arange(B, dtype=np.float64),
+                "lat": -80.0 + np.arange(nlat) / 12.0,
+                "lon": -180.0 + np.arange(nlon) / 12.0})
+
+
+def pair_phase(xt, kernels, card):
+    """Phase 26: the matmul engine's pair path (``ops/matmul_fft.py``) at
+    full width under fft_impl="matmul": (A) the inverse flagship, whose
+    irfftn the stacked engine cannot run alone; (B) the PSD and (C) the
+    shifted fft of a GLORYS12 stack, whose 2041 = 13 x 157 latitudes no
+    stacked plan covers; (D) DST-I along x of the flagship (8194 = 2 x 17 x
+    241 points); and the istft of phase 14's stft.  Each is held against the
+    same call in float64 through cuFFT, with every kernel's launches counted
+    from 0 and checked against the route, timed beside "torch" and "kernel"
+    and profiled.  Then K2 at the pair path's shapes against cuFFT and the
+    engine's own einsum recursion (``matmul_fft._split_last``)."""
+    from xrft_tpu_torch.ops import matmul_fft
+
+    def leg(label, fn, ref, expect, lim=1e-5):
+        out, n = counted(kernels, lambda: under("matmul", fn))
+        want = {k: expect.get(k, 0) for k in kernels}
+        check(tuple(out.shape) == tuple(ref.shape) and tuple(out.dims) ==
+              tuple(ref.dims) and bool(torch.isfinite(out.data).all()),
+              f"{label}: unexpected output {out!r}")
+        err = rel_err(out.data, ref.data)
+        check(err <= lim, f"{label}: rel err {err:.3e} > {lim}")
+        check(n == want, f"{label}: launches {n}, expected {want}")
+        ms = {impl: wall_ms(lambda: under(impl, fn), runs=3, warmup=1)
+              for impl in ("matmul", "torch", "kernel")}
+        log(f"phase 26: {label}, fft_impl='matmul': rel err vs float64 "
+            f"{err:.3e} (limit {lim}), launches {n}; ms "
+            + ", ".join(f"{k!r} {v:.3f}" for k, v in ms.items())
+            + f" [{card}]")
+        device_split(lambda: under("matmul", fn),
+                     f"phase 26: {label}, 'matmul'", card)
+        return out
+
+    # (A) the inverse flagship (bench.py:337-383): the stacked inverse along
+    # freq_y, then the packed half-length inverse (stacked, 2048 points)
+    F = inverse_spectrum()
+    ref = under("torch", xt.ifft, inverse_half(xt, F.to(torch.complex128),
+                                               "shifted"), **INV_KW)
+    for order in ("shifted", "natural"):
+        half = inverse_half(xt, F, order)
+        out = leg(f"(A) inverse flagship {INV_SHAPE}, freq_y {order}",
+                  lambda: xt.ifft(half, **INV_KW), ref, {})
+        e_t = rel_err(out.data, under("torch", xt.ifft, half,
+                                      **INV_KW).data.double())
+        check(e_t <= 1e-5, f"(A) {order}: rel err vs cuFFT {e_t:.3e}")
+        log(f"phase 26: (A) freq_y {order}: rel err vs 'torch' on the same "
+            f"complex64 input {e_t:.3e} (limit 1e-5)")
+        del out, half
+    del F, ref
+
+    # (B) and (C): the GLORYS12 stack
+    da = glorys(xt, field(GLORYS_SHAPE, 260))
+    da64 = da.copy(data=da.data.double())
+    ref = plain64(xt, xt.power_spectrum, da, **GLORYS_KW)
+    leg(f"(B) power_spectrum {GLORYS_SHAPE} (lat, lon), hann, linear",
+        lambda: xt.power_spectrum(da, **GLORYS_KW), ref,
+        {"fft_fourstep": 2, "mirror_psd": 1})
+    ref = under("torch", xt.fft, da64, dim=["lat", "lon"])
+    leg(f"(C) fft {GLORYS_SHAPE} (lat, lon), shift and true_phase",
+        lambda: xt.fft(da, dim=["lat", "lon"]), ref, {"fft_fourstep": 2})
+    del da, da64, ref
+
+    # (D) DST-I along x of the flagship field (bench.py:447-455): 8194 points
+    da = labeled(xt, field(MAIN_SHAPE, 40))
+    ref = under("torch", xt.dst, da.copy(data=da.data.double()), dim="x",
+                type=1)
+    leg(f"(D) DST-I along x of {MAIN_SHAPE} ({2 * MAIN_SHAPE[2] + 2} "
+        f"points)",
+        lambda: xt.dst(da, dim="x", type=1), ref, {"fft_fourstep": 1})
+    del da, ref
+
+    # the istft of phase 14's stft under "matmul"
+    sig = xt.LabeledArray(field(SG_SHAPE, 31), dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    Z = xt.stft(sig, dim="t", seglen=SG_SEG, window="hann")
+    back, n = counted(kernels, lambda: under("matmul", xt.istft, Z))
+    e_rt = rel_err(back.data, sig.data.double())
+    check(back.shape == sig.shape and e_rt <= 1e-5
+          and not any(n.values()),
+          f"istft under 'matmul': rel err {e_rt:.3e}, launches {n}")
+    ms = {impl: wall_ms(lambda: under(impl, xt.istft, Z), runs=3, warmup=1)
+          for impl in ("matmul", "torch")}
+    log(f"phase 26: istft of the {SG_SHAPE} stft {tuple(Z.shape)} under "
+        f"'matmul': roundtrip rel err {e_rt:.3e} (limit 1e-5), launches "
+        f"{n}; ms " + ", ".join(f"{k!r} {v:.3f}" for k, v in ms.items())
+        + f" [{card}]")
+    device_split(lambda: under("matmul", xt.istft, Z),
+                 "phase 26: istft, 'matmul'", card)
+    del sig, Z, back
+
+    # K2 at the pair path's shapes against cuFFT and the einsum recursion
+    k2 = kernels["fft_fourstep"]
+    for rows, n in PAIR_K2_SHAPES:
+        x = field((rows, n), 7, torch.complex64)
+        ref = torch.fft.fft(x.to(torch.complex128))
+        rec, inner = counted(kernels, lambda: matmul_fft._split_last(x, n,
+                                                                     -1))
+        errs = [rel_err(y, ref) for y in (k2(x), torch.fft.fft(x), rec)]
+        check(max(errs) <= 1e-5, f"({rows}, {n}): rel errs {errs}")
+        del ref, rec
+        t = [event_ms(f, runs=5) for f in (
+            lambda: k2(x), lambda: torch.fft.fft(x),
+            lambda: matmul_fft._split_last(x, n, -1))]
+        nbytes = 2 * x.numel() * x.element_size()
+        b_ms, b_by = bound(nbytes, fft_flops(rows, n))
+        log(f"phase 26: K2 ({rows}, {n}) complex64 back to back: kernel "
+            f"{t[0]:.3f} ms ({b_ms / t[0]:.1%} of the {b_by} bound "
+            f"{b_ms:.3f} ms), cuFFT {t[1]:.3f} ms, the pair engine's einsum "
+            f"recursion {t[2]:.3f} ms (K2 launches inside it: "
+            f"{inner['fft_fourstep']}); rel err vs complex128: kernel "
+            f"{errs[0]:.3e}, cuFFT {errs[1]:.3e}, recursion {errs[2]:.3e} "
+            f"[{card}]")
+        del x
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -1917,6 +2065,13 @@ def main():
                        "fft_fourstep": fft_fourstep.fft_last,
                        "binned_sum": binning.binned_sum,
                        "dft64": dft64.dft_last}, card)
+
+    # ---- phase 26: the matmul engine's pair path --------------------------
+    pair_phase(xt, {"mirror_psd": mirror.mirror_psd,
+                    "fft_fourstep": fft_fourstep.fft_last,
+                    "binned_sum": binning.binned_sum,
+                    "dft64": dft64.dft_last, "dot": dot.dot,
+                    "dot_fold": dot.dot_fold, "dot_dma": dot.dot_dma}, card)
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]

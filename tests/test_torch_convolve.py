@@ -4,8 +4,9 @@ xrft_tpu_torch against xrft_tpu on the CPU, case for case as
 and complex, swapped sizes, kernel broadcasting, the support and lag grids,
 the direct route (one torch convolution; four dims as a sum of 3-D ones) and
 the error contracts.  The FFT routes run under fft_impl "torch", "kernel"
-and "matmul"; real oaconvolve needs irfftn, which "matmul" lacks, so it
-raises there.  Also: ``config.full_fp32`` scopes cuDNN's convolution
+and "matmul"; real oaconvolve takes irfftn, which "matmul" runs on the
+pair engine's packed inverse, held against xrft_tpu's fft_engine("matmul")
+and scipy.  Also: ``config.full_fp32`` scopes cuDNN's convolution
 precision and restores the caller's.  Tolerances: 1e-12 (float64) and 2e-6
 (float32) of the largest |value|."""
 
@@ -15,8 +16,9 @@ import scipy.signal as sps
 
 torch = pytest.importorskip("torch")
 
+import xrft_tpu
 import xrft_tpu_torch as xt
-from torch_parity import IMPLS, check, pair
+from torch_parity import IMPLS, assert_same, check, pair
 from xrft_tpu_torch.config import config, fft_impl, full_fp32
 from xrft_tpu_torch.labeled import Coord
 
@@ -353,9 +355,14 @@ def test_oaconvolve_parity(mode, n1, n2, impl):
                                atol=1e-10)
     np.testing.assert_array_equal(got.coords["t"].values,
                                   ref.coords["t"].values)
-    with fft_impl("matmul"), pytest.raises(NotImplementedError,
-                                           match="irfftn"):
-        xt.oaconvolve(da, db, dims="t", mode=mode)
+    # real operands take rfftn/irfftn: under "matmul" the packed pair
+    # engine's irfft, as xrft_tpu's fft_engine("matmul")
+    with xrft_tpu.fft_engine("matmul"):
+        ref_mm = xrft_tpu.oaconvolve(ra, rb, dims="t", mode=mode)
+    with fft_impl("matmul"):
+        got_mm = xt.oaconvolve(da, db, dims="t", mode=mode)
+    assert_same(got_mm, ref_mm, 1e-12)
+    np.testing.assert_allclose(got_mm.values, want, rtol=1e-9, atol=1e-10)
 
 
 @pytest.mark.parametrize("impl", ["torch", "kernel"])

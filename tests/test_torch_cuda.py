@@ -18,7 +18,8 @@ from xrft_tpu_torch import (LabeledArray, convolve, dct, dctn, fft,
                             power_spectrum, resample, welch, zoom_fft)
 from xrft_tpu_torch.config import (binned_sum_impl, fft_impl, full_fp32,
                                    level0_impl, psd_mirror_impl)
-from xrft_tpu_torch.ops import binning, dft64, dot, fft_fourstep, mirror
+from xrft_tpu_torch.ops import (binning, dft64, dot, fft_core, fft_fourstep,
+                                mirror)
 
 pytestmark = pytest.mark.cuda
 
@@ -371,6 +372,33 @@ def test_matmul_route_through_k5a(cuda, impl):
     assert got.data.is_cuda and got.dims == ref.dims
     assert _rel(got.data.double(), ref.data) <= 2e-6
     assert _rel(w.data.double(), ref_w.data) <= 2e-6
+
+
+def test_matmul_pair_engine_through_k2(cuda):
+    """Under fft_impl="matmul" the pair engine runs what the stacked engine
+    cannot plan: a Bluestein length (n = 157 on 64 rows) launches K2 twice
+    (its two 512-point transforms) and is within 2e-6 of max of the same
+    call on the CPU; irfftn of (4, 96, 315) takes the stacked inverse along
+    96, then the packed half-length inverse at 314 = 2 x 157 on K2, within
+    2e-6 of max of cuFFT's."""
+    g = torch.Generator(device=cuda).manual_seed(157)
+    x = torch.randn((64, 157), generator=g, device=cuda,
+                    dtype=torch.complex64)
+    X = torch.fft.rfftn(torch.randn((4, 96, 628), generator=g, device=cuda),
+                        dim=(1, 2))
+    with fft_impl("matmul"):
+        before = fft_fourstep.fft_last.launches
+        got = fft_core.fftn(x, [1])
+        torch.cuda.synchronize()
+        assert fft_fourstep.fft_last.launches == before + 2
+        on_cpu = fft_core.fftn(x.cpu(), [1])
+        before = fft_fourstep.fft_last.launches
+        back = fft_core.irfftn(X, [1, 2])
+        torch.cuda.synchronize()
+        assert fft_fourstep.fft_last.launches == before + 1
+    assert got.is_cuda and _rel(got.cpu(), on_cpu) <= 2e-6
+    assert back.shape == (4, 96, 628) and back.dtype == torch.float32
+    assert _rel(back, torch.fft.irfftn(X, dim=(1, 2))) <= 2e-6
 
 
 @pytest.mark.parametrize("mode,kw", [

@@ -2,9 +2,9 @@
 case for case as ``tests/test_fht.py``: even and odd lengths, Bessel orders,
 bias and offset, the round trip, the analytic self-transform, the
 log-spacing from the coordinate, the singular warnings and the error
-contracts.  Even lengths take rfftn/irfftn, which "matmul" lacks (it
-raises); odd lengths take fftn/ifftn and run on all three fft_impl.
-Tolerances: 1e-12 (float64) and 2e-6 (float32) of the largest |value|."""
+contracts.  Even lengths take rfftn/irfftn (under "matmul" the packed pair
+engine's irfft, also held against xrft_tpu's fft_engine("matmul")), odd
+lengths fftn/ifftn; both run on all three fft_impl.  Tolerances: 1e-12 (float64) and 2e-6 (float32) of the largest |value|."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 import xrft_tpu
 import xrft_tpu_torch as xt
-from torch_parity import IMPLS, check, pair
+from torch_parity import IMPLS, assert_same, check, pair
 from xrft_tpu_torch.config import fft_impl
 
 
@@ -23,25 +23,21 @@ def _loggrid(n, lo=-4.0, hi=2.0):
     return r, float(np.log(r[1] / r[0]))
 
 
-def _impls(n):
-    return IMPLS if n % 2 else ("torch", "kernel")
-
-
 @pytest.mark.parametrize("mu", [0.0, 0.5, 2.0, -0.5])
 @pytest.mark.parametrize("n", [64, 128, 63, 97])
 def test_fht_parity(n, mu):
     r, dln = _loggrid(n)
     ref, da = pair(r ** (mu + 1) * np.exp(-(r ** 2) / 2), ["r"], {"r": r})
-    for impl in _impls(n):
+    want = sfft.fht(ref.values, dln, mu=mu)
+    for impl in IMPLS:
         got, _ = check("fht", [ref], [da], impl, 1e-12, dln=dln, mu=mu,
                        dim="r")
-    assert got.dims == ("freq_r",)
-    np.testing.assert_allclose(got.values, sfft.fht(ref.values, dln, mu=mu),
-                               rtol=1e-9, atol=1e-12)
-    if n % 2 == 0:
-        with fft_impl("matmul"), pytest.raises(NotImplementedError,
-                                               match="irfftn"):
-            xt.fht(da, dln=dln, mu=mu, dim="r")
+        assert got.dims == ("freq_r",)
+        np.testing.assert_allclose(got.values, want, rtol=1e-9, atol=1e-12)
+    with xrft_tpu.fft_engine("matmul"):
+        ref_mm = xrft_tpu.fht(ref, dln=dln, mu=mu, dim="r")
+    with fft_impl("matmul"):
+        assert_same(xt.fht(da, dln=dln, mu=mu, dim="r"), ref_mm, 1e-12)
 
 
 @pytest.mark.parametrize("bias", [0.5, -1.0])
@@ -53,7 +49,7 @@ def test_fht_bias_and_offset_parity(n, bias):
     assert offset == pytest.approx(sfft.fhtoffset(dln, 1.0, initial=0.3,
                                                   bias=bias))
     ref, da = pair(r ** 2 * np.exp(-r), ["r"], {"r": r})
-    for impl in _impls(n):
+    for impl in IMPLS:
         for fn in ("fht", "ifht"):
             check(fn, [ref], [da], impl, 1e-12, dln=dln, mu=1.0,
                   offset=offset, bias=bias, dim="r")

@@ -322,13 +322,17 @@ def test_pencil_with_stacked_engine(pool2, kind):
     assert_values(res[0]["value"], ref)
 
 
-def test_pencil_stacked_engine_irfft_raises(pool2):
-    """The matmul engine has no irfftn in the port; the pencil says so."""
-    x = np.fft.rfftn(np.random.RandomState(12).randn(32, 64))
+def test_pencil_matmul_engine_irfft(pool2):
+    """The pencil irfft under "matmul": the chained axis walks back on the
+    stacked engine, the resident real axis takes the pair engine's packed
+    inverse; against numpy.fft.irfftn."""
+    real = np.random.RandomState(12).randn(32, 64)
+    x = np.fft.rfftn(real)
     res = pool2.run(fn="pencil_fftn", mesh="p", x=x, axes=[0, 1],
                     axis_sharding={0: "p"}, kind="irfft",
                     config={"fft_impl": "matmul"})
-    assert isinstance(res, _Raised) and res.kind == "NotImplementedError"
+    assert_values(res[0]["value"], np.fft.irfftn(x, axes=[0, 1]))
+    assert_values(res[0]["value"], real)
 
 
 @pytest.mark.parametrize("kind", ["fft", "ifft", "rfft", "irfft"])

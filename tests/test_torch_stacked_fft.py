@@ -93,21 +93,34 @@ def test_transforms_match_reference(n, kind, dtype):
             assert _rel(got.numpy(), ref) <= TOL[dtype], (ndim, pre, post)
 
 
-def test_what_the_engine_cannot_plan_raises():
-    """A prime above direct_dft_max needs Bluestein, an odd outer radix
-    cannot absorb a shift, and irfftn has no stacked form: each raises,
-    and nothing reaches torch.fft."""
-    x = torch.randn(2, 131, dtype=torch.float64)
-    with fft_impl("matmul"):
-        with pytest.raises(NotImplementedError, match="Bluestein"):
-            fft_core.fftn(x, [1])
-        with pytest.raises(NotImplementedError, match="Bluestein"):
-            fft_core.rfftn(x, [1])
-        y = torch.randn(2, 254, dtype=torch.complex128)    # plan (2, 127)
-        fft_core.fftn(y, [1], pre_shift_axes=[1])
-        with pytest.raises(NotImplementedError, match="shift"):
-            fft_core.fftn(y, [1], post_shift_axes=[1])
-        with pytest.raises(NotImplementedError, match="irfftn"):
-            fft_core.irfftn(torch.randn(2, 9, dtype=torch.complex128), [1])
-    assert not stacked_fft.stacked_supported(x, [1], "fft", (), ())
-    assert stacked_fft.stacked_supported(y, [1], "fft", (1,), ())
+def test_what_the_engine_cannot_plan_runs_on_the_pair_engine():
+    """A prime above direct_dft_max (Bluestein), an odd outer radix under
+    an output shift and irfftn have no stacked plan: under "matmul" the pair
+    engine runs them, as xrft_tpu's fft_engine("matmul"), and nothing
+    reaches torch.fft; fft_nd_stacked called directly still raises."""
+    rng = np.random.RandomState(131)
+    x = rng.randn(2, 131)
+    y = rng.randn(2, 254) + 1j * rng.randn(2, 254)    # plan (2, 127)
+    z = rng.randn(2, 9) + 1j * rng.randn(2, 9)
+    cases = [(fft_core.fftn, ref_core.fftn, x, {}),
+             (fft_core.rfftn, ref_core.rfftn, x, {}),
+             (fft_core.fftn, ref_core.fftn, y, dict(pre_shift_axes=[1])),
+             (fft_core.fftn, ref_core.fftn, y, dict(post_shift_axes=[1])),
+             (fft_core.irfftn, ref_core.irfftn, z, {})]
+    for fn, ref_fn, data, kw in cases:
+        with xrft_tpu.fft_engine("matmul"):
+            ref = np.asarray(ref_fn(data, [1], **kw))
+        with fft_impl("matmul"):
+            got = fn(torch.from_numpy(data), [1], **kw)
+        assert got.numpy().dtype == ref.dtype and got.shape == ref.shape
+        assert _rel(got.numpy(), ref) <= 1e-12, (fn.__name__, kw)
+    xt_, yt = torch.from_numpy(x), torch.from_numpy(y)
+    assert not stacked_fft.stacked_supported(xt_, [1], "fft", (), ())
+    assert stacked_fft.stacked_supported(yt, [1], "fft", (1,), ())
+    assert not stacked_fft.stacked_supported(yt, [1], "fft", (), (1,))
+    with pytest.raises(NotImplementedError, match="prime factor above"):
+        stacked_fft.fft_nd_stacked(xt_, [1], "fft")
+    with pytest.raises(NotImplementedError, match="shift"):
+        stacked_fft.fft_nd_stacked(yt, [1], "fft", (), (1,))
+    with pytest.raises(NotImplementedError, match="irfft"):
+        stacked_fft.fft_nd_stacked(torch.from_numpy(z), [1], "irfft")

@@ -1,7 +1,7 @@
 """stft/istft of xrft_tpu_torch against xrft_tpu on the CPU, and the
 roundtrip.  The forward runs under ``fft_impl="torch"`` and ``"matmul"``;
-the inverse needs an irfft, which the matmul engine does not carry, so it
-runs under ``"torch"`` (and raises under ``"matmul"``).
+the inverse, an irfft, under ``"torch"`` and, on the matmul engine's packed
+pair-engine inverse, under ``"matmul"``.
 
 Tolerances, relative to the largest |value|: 1e-12 in float64, 2e-6 in
 float32; the roundtrip to 1e-6 (float64: the scale, window and
@@ -80,9 +80,16 @@ def test_stft_istft_match_reference(case, dtype):
     assert err <= ROUNDTRIP[dtype]
 
 
-def test_istft_under_matmul_raises():
-    _, da = _series(128, np.float64)
-    Z = xt.stft(da, dim="t", seglen=32)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_istft_under_matmul(dtype):
+    """istft takes irfftn: under "matmul" the pair engine's packed inverse,
+    against xrft_tpu's fft_engine("matmul") and the roundtrip limit."""
+    ref, da = _series(128, dtype)
+    with xrft_tpu.fft_engine("matmul"):
+        back_ref = xrft_tpu.istft(xrft_tpu.stft(ref, dim="t", seglen=32))
     with fft_impl("matmul"):
-        with pytest.raises(NotImplementedError, match="irfftn"):
-            xt.istft(Z)
+        back = xt.istft(xt.stft(da, dim="t", seglen=32))
+    assert_same(back, back_ref, TOL[dtype])
+    x = da.values
+    err = np.abs(back.values - x[:, :back.sizes["t"]]).max() / np.abs(x).max()
+    assert back.sizes["t"] == 128 and err <= ROUNDTRIP[dtype]

@@ -11,8 +11,9 @@ import scipy.fft as sfft
 
 torch = pytest.importorskip("torch")
 
+import xrft_tpu
 import xrft_tpu_torch as xt
-from torch_parity import IMPLS, check, pair
+from torch_parity import IMPLS, assert_same, check, pair
 from xrft_tpu_torch.config import fft_impl
 
 TYPES = [1, 2, 3, 4]
@@ -103,16 +104,19 @@ def test_float32_through_k2(type, impl):
 
 def test_dst1_extension_lengths_at_4096():
     """At N = 4096 DCT-I and DST-I transform 8190 = 90 x 91 and
-    8194 = 34 x 241 points: K2 runs both, while the matmul engine, whose
-    radices stop at direct_dft_max = 128, raises on 241."""
+    8194 = 34 x 241 points: K2 runs both under "kernel"; under "matmul" the
+    stacked engine plans 8190, and 8194, with its prime factor 241 above
+    direct_dft_max = 128, goes to the pair engine, whose K2 step takes the
+    whole length (as xrft_tpu's fft_engine("matmul") takes its einsum
+    recursion)."""
     ref, da = make_1d(4096, seed=1, dtype=np.float32)
-    for impl in ("torch", "kernel"):
+    for impl in IMPLS:
         check("dst", [ref], [da], impl, 2e-6, type=1)
         check("dct", [ref], [da], impl, 2e-6, type=1)
+    with xrft_tpu.fft_engine("matmul"):
+        want = xrft_tpu.dst(ref, type=1)
     with fft_impl("matmul"):
-        check("dct", [ref], [da], "matmul", 2e-6, type=1)
-        with pytest.raises(NotImplementedError, match="prime factor above"):
-            xt.dst(da, type=1)
+        assert_same(xt.dst(da, type=1), want, 2e-6)
 
 
 def test_error_contracts():

@@ -9,7 +9,8 @@ largest |value|.
 On the CPU, ``fft_impl="kernel"`` runs the plain versions of K2 (float32,
 lengths n >= 256 with a factor pair <= 256) and of the K4 recursion
 (float64, prime factors <= 256); ``"matmul"`` runs the stacked matmul engine
-(prime factors <= 128, no irfft).
+where it can plan the request and the pair engine otherwise (any length;
+K2's plain version on its unshifted float32 levels).
 """
 
 import numpy as np

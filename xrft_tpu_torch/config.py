@@ -38,12 +38,16 @@ class _Config:
     #              float64 and complex128 data run the FP64 recursion with K4
     #              as its base case (ops/dft64.py), for lengths whose factors
     #              are <= 256.  Anything else raises.
-    #   "matmul" - the stacked matmul engine (ops/stacked_fft.py), the
-    #              counterpart of the JAX package's fft_engine="matmul": DFT
-    #              stages as dense products over radices <= direct_dft_max,
-    #              with the real-input level-0 product on the hand-written
-    #              kernel K5a (ops/dot.py) for float32 data on the card.  A
-    #              length it cannot plan, and irfftn, raise.
+    #   "matmul" - the matmul engines (ops/matmul_fft.py), the counterpart
+    #              of the JAX package's fft_engine="matmul": DFT stages as
+    #              dense products over radices <= direct_dft_max.  The
+    #              stacked engine (ops/stacked_fft.py) takes every request
+    #              it can plan, its real-input level-0 product on the
+    #              hand-written kernel K5a (ops/dot.py) for float32 data on
+    #              the card; the pair engine the rest (irfftn, Bluestein for
+    #              a prime factor above direct_dft_max, shifts an odd radix
+    #              cannot absorb), its unshifted float32 four-step levels on
+    #              K2 (ops/fft_fourstep.py) wherever K2 takes the length.
     fft_impl: str = "torch"
     # Largest radix of the matmul engine's plans (xrft_tpu/config.py:30-36):
     # a length up to it is one dense DFT product, a longer one a four-step

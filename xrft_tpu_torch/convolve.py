@@ -207,8 +207,8 @@ def oaconvolve(da, db, dims=None, mode="full", engine=None):
     the long signal split into blocks of ``step = nfft - (n2-1)`` samples,
     each transformed at the small size ``nfft`` as a batch axis, the
     kernel's spectrum computed once, and the overlap-add two slices and an
-    add.  Real operands take ``rfftn``/``irfftn`` (so ``"matmul"``, which
-    has no irfft, raises for them).  Falls back to :func:`fftconvolve`'s
+    add.  Real operands take ``rfftn``/``irfftn`` (under ``"matmul"`` the
+    stacked rfft and the pair engine's packed irfft).  Falls back to :func:`fftconvolve`'s
     single transform when the kernel is not much shorter than the signal."""
     dims_l = _norm_dims(da, db, dims, "oaconvolve")
     if len(dims_l) != 1:

@@ -12,7 +12,8 @@ complex128 (``scipy.special.loggamma``), as are the bias factors; the
 inverse's division is a host reciprocal.  The device work is one
 ``rfftn``/``irfftn`` pair (even n) or ``fftn``/``ifftn`` pair (odd n) through
 :mod:`.ops.fft_core` around a complex multiply, and a flip.  Under
-``fft_impl="matmul"`` the even route raises: the matmul engine has no irfft.
+``fft_impl="matmul"`` the even route's irfft is the pair engine's packed
+half-length inverse.
 
 Coordinate-aware beyond scipy: ``dln`` defaults to the dim's log-spacing
 (checked uniform in log), and the output carries the conjugate grid

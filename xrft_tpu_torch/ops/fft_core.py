@@ -14,10 +14,15 @@ scaling rule downstream is implementation-independent:
                    its base case (:mod:`.dft64`).  The inverse is the sign +1
                    transform scaled by 1/n.  A dtype or length a kernel
                    cannot run raises; nothing is handed to torch.fft quietly.
-  * ``"matmul"`` - the stacked matmul engine (:mod:`.stacked_fft`), with the
-                   shifts absorbed into its weights and the real-input
-                   level-0 product on K5a (:mod:`.dot`).  A length it cannot
-                   plan, and ``irfftn``, raise NotImplementedError.
+  * ``"matmul"`` - the matmul engines (:mod:`.matmul_fft`), as the JAX
+                   package's ``engine="matmul"``: the stacked engine
+                   (:mod:`.stacked_fft`, its real-input level-0 product on
+                   K5a, :mod:`.dot`) for every request it can plan, the pair
+                   engine for the rest (``irfftn``, a prime factor above
+                   ``direct_dft_max`` by Bluestein, a shift an odd radix
+                   cannot absorb), with K2 on its four-step levels for
+                   float32 data.  The shifts are absorbed into the engines'
+                   weights where the factors allow.
 
 ``pre_shift_axes`` ifftshift the input and ``post_shift_axes`` shift the
 output (``post_kind`` "fftshift" or, for the inverses, "ifftshift"), as in
@@ -33,7 +38,7 @@ import torch
 from ..config import FFT_IMPLS, config
 from .dft64 import fftn64
 from .fft_fourstep import fft_last
-from .stacked_fft import fft_nd_stacked
+from .matmul_fft import matmul_fft_nd
 
 __all__ = ["fftn", "ifftn", "rfftn", "irfftn", "fftshift", "ifftshift"]
 
@@ -80,8 +85,8 @@ def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     """Complex N-D FFT over ``axes``."""
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
-        return fft_nd_stacked(x, axes, "fft", pre_shift_axes,
-                              post_shift_axes)
+        return matmul_fft_nd(x, axes, "fft", pre_shift_axes,
+                             post_shift_axes)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
@@ -96,8 +101,8 @@ def ifftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
     """Complex N-D inverse FFT over ``axes``, scaled by 1/prod(n)."""
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
-        return fft_nd_stacked(x, axes, "ifft", pre_shift_axes,
-                              post_shift_axes, post_kind)
+        return matmul_fft_nd(x, axes, "ifft", pre_shift_axes,
+                             post_shift_axes, post_kind)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
@@ -112,8 +117,8 @@ def rfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     ``n//2 + 1`` columns."""
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
-        return fft_nd_stacked(x, axes, "rfft", pre_shift_axes,
-                              post_shift_axes)
+        return matmul_fft_nd(x, axes, "rfft", pre_shift_axes,
+                             post_shift_axes)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
@@ -133,13 +138,13 @@ def irfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
     The kernel route inverts the other axes first, extends the last one to
     length n by Hermitian symmetry (``X[n - k] = conj(X[k])``), runs the
     sign +1 transform and keeps the real part, which drops any imaginary
-    part at DC and Nyquist as numpy does.  The matmul engine has no irfft
-    (the JAX package runs it on its pair engine): ``"matmul"`` raises."""
+    part at DC and Nyquist as numpy does.  ``"matmul"`` inverts the other
+    axes (stacked where it can plan them), then runs the packed half-length
+    inverse, which zeroes those imaginary parts first."""
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
-        raise NotImplementedError(
-            "irfftn under fft_impl='matmul' is not ported (the JAX package "
-            "runs it on its pair engine; ROADMAP.md, Queue 1)")
+        return matmul_fft_nd(x, axes, "irfft", pre_shift_axes,
+                             post_shift_axes, post_kind)
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":

@@ -20,9 +20,12 @@ Every other product is ``torch.einsum`` at full float32 grade, as the JAX
 package leaves them to ``lax.dot_general``.
 
 Not carried: the raw layout (``raw=True``, ``pre_weights``,
-``inter_axis_barrier``), the pair engine and Bluestein
-(``xrft_tpu/ops/matmul_fft.py``), and ``irfft``.  A request this engine
-cannot plan raises NotImplementedError naming the missing piece.
+``inter_axis_barrier``).  :func:`.matmul_fft.matmul_fft_nd` hands this
+engine every request :func:`stacked_supported` accepts and runs the rest
+(``irfft``, complex ``rfft``, a prime factor above ``direct_dft_max``, a
+shift an odd outer radix cannot absorb) on the pair engine; called directly
+with such a request, :func:`fft_nd_stacked` raises NotImplementedError
+naming the reason.
 """
 
 from __future__ import annotations
@@ -35,34 +38,11 @@ import torch
 
 from ..config import LEVEL0_IMPLS, config, full_fp32
 from . import dot as _dot
+from .matmul_fft import _dft_matrix_np, _twiddle_np
 
 __all__ = ["plan", "stacked_supported", "fft_nd_stacked"]
 
 PACK_GROUPS = 4  # G of the packed level-0 layout (xrft_tpu's _pallas_level0_dot)
-
-
-# --------------------------------------------------------------------------
-# Host-side constants (exact modular angles, float64 trig), copies of
-# xrft_tpu/ops/matmul_fft.py:65,91
-# --------------------------------------------------------------------------
-
-
-@lru_cache(maxsize=None)
-def _dft_matrix_np(n: int, sign: int) -> np.ndarray:
-    """Dense DFT matrix W[j,k] = exp(sign*2*pi*i*j*k/n), complex128."""
-    j = np.arange(n, dtype=np.int64)
-    ang = (2.0 * np.pi * sign / n) * np.mod(np.outer(j, j), n)
-    return np.cos(ang) + 1j * np.sin(ang)
-
-
-@lru_cache(maxsize=None)
-def _twiddle_np(n1: int, n2: int, sign: int) -> np.ndarray:
-    """Four-step twiddle T[k1,m2] = exp(sign*2*pi*i*k1*m2/(n1*n2))."""
-    n = n1 * n2
-    prod = np.mod(np.outer(np.arange(n1, dtype=np.int64),
-                           np.arange(n2, dtype=np.int64)), n)
-    ang = (2.0 * np.pi * sign / n) * prod
-    return np.cos(ang) + 1j * np.sin(ang)
 
 
 # --------------------------------------------------------------------------
@@ -155,21 +135,21 @@ def _shifts_absorbable(n: int, F: tuple[int, ...], pre: bool,
 def _unsupported(shape, is_complex, axes, kind, pre_axes, post_axes):
     """Why this engine cannot run the request, or None."""
     if kind not in ("fft", "ifft", "rfft"):
-        return (f"{kind} under fft_impl='matmul' is not ported (the JAX "
-                f"package runs it on its pair engine; ROADMAP.md, Queue 1)")
+        return f"the stacked engine has no {kind} (the pair engine runs it)"
     if kind == "rfft" and is_complex:
-        return "rfft of complex input under fft_impl='matmul' is not ported"
+        return ("the stacked engine has no rfft of complex input (the pair "
+                "engine runs it)")
     cap = config.direct_dft_max
     for a in axes:
         F = plan(shape[a], cap)
         if F is None:
             return (f"length {shape[a]} has a prime factor above "
-                    f"direct_dft_max={cap}: the Bluestein engine it needs is "
-                    f"not ported (ROADMAP.md, Queue 1)")
+                    f"direct_dft_max={cap} (the pair engine's Bluestein runs "
+                    f"it)")
         if not _shifts_absorbable(shape[a], F, a in pre_axes, a in post_axes):
             return (f"length {shape[a]} plans as {F}, whose odd outer radix "
-                    f"cannot absorb the requested shift: the pair engine it "
-                    f"needs is not ported (ROADMAP.md, Queue 1)")
+                    f"cannot absorb the requested shift (the pair engine "
+                    f"runs it)")
     return None
 
 
@@ -406,7 +386,8 @@ def fft_nd_stacked(x: torch.Tensor, axes, kind: str, pre_shift_axes=(),
     over ``axes``, numpy's conventions, as a complex tensor on ``x``'s
     device; ``pre_shift_axes`` ifftshift the input and ``post_shift_axes``
     shift the output (``post_kind``).  Raises NotImplementedError for a
-    request the engine cannot plan."""
+    request the engine cannot plan (:func:`.matmul_fft.matmul_fft_nd` gives
+    those to the pair engine)."""
     ndim = x.ndim
     axes = [ax % ndim for ax in axes]
     pre_set = {ax % ndim for ax in pre_shift_axes}

@@ -18,8 +18,9 @@ with the tiled semantics of ``jax.lax.all_to_all`` (the split axis is cut
 into P chunks, chunk j goes to rank j, and what arrives is concatenated
 along the concat axis in rank order).  The local FFTs go through
 :mod:`..ops.fft_core` under ``config.fft_impl``: cuFFT ("torch"), the
-kernels K2 (float32) and K4 (float64) ("kernel"), or the stacked matmul
-engine ("matmul").  ``config.pencil_overlap_chunks > 1`` splits each
+kernels K2 (float32) and K4 (float64) ("kernel"), or the matmul engines
+("matmul": stacked where it can plan, the pair engine otherwise, irfft
+included).  ``config.pencil_overlap_chunks > 1`` splits each
 (all_to_all, FFT) pair into chunks along the largest resident axis and
 issues each chunk's all_to_all asynchronously, so that it runs while the
 previous chunk's FFT does.
