@@ -45,7 +45,12 @@ PyTorch version on the card, and drives four paths at full width:
     stack (8 x 2041 x 4320; 2041 = 13 x 157 takes K2 and Bluestein), DST-I
     at 8194 points and the istft of 8 x 2^22 samples, each with its K1-K5
     launches counted and checked, and K2 at those shapes against cuFFT and
-    the engine's einsum recursion.
+    the engine's einsum recursion;
+  * integer, float16 and complex input at full width (phase 27): the
+    flagship PSD of uint16 counts under every fft_impl and of int32 counts
+    under cuFFT and the K4 recursion, welch, spectrogram and periodogram of
+    int16 series, pad of complex64 data in the modes that order complex
+    values, and float16 transforms, each held to xrft_tpu's dtype rules.
 
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
@@ -1825,6 +1830,170 @@ def pair_phase(xt, kernels, card):
         del x
 
 
+# ---- phase 27: integer, float16 and complex input on the repaired routes -
+
+
+REPAIR_PAD_MODES = (("maximum", {}), ("minimum", dict(stat_length=64)),
+                    ("median", {}),
+                    ("linear_ramp", dict(end_values=(0.5 - 2j, -1.5))))
+RFFT16 = "RFFT input must be float32 or float64, got float16"
+# the uint16 PSD against the float64 values: float32's rounding of a mean
+# of 2048 at DC, 1.94e-5 of max on an H100, as the float32 pipeline's
+U16_LIMIT = 4e-5
+
+
+def repair_phase(xt, kernels, card):
+    """Phase 27: the dtypes the port takes as ``xrft_tpu`` takes them, at
+    the flagship's full width.  uint16 counts (an imagery user's data)
+    through the flagship PSD under every fft_impl, in float32 as
+    ``xrft_tpu`` computes them: bit for bit the float32 pipeline on the same
+    values, within U16_LIMIT of the float64 values; int32 counts on the
+    float64 route, "kernel" (the K4 recursion) against "torch"; welch,
+    spectrogram and periodogram of int16 series at their default constant
+    detrend; pad of complex64 data in the modes that order complex values,
+    against numpy.pad bit for bit; float16 data, whose real fft raises
+    xrft_tpu's ValueError under every route and whose complex fft
+    promotes.  Then the PSD times of the integer inputs beside
+    the float32 flagship's."""
+    g = torch.Generator(device=DEV).manual_seed(270)
+    counts = torch.randint(0, 4096, MAIN_SHAPE, generator=g, device=DEV,
+                           dtype=torch.int32)          # 12-bit counts
+    ref = under("torch", xt.power_spectrum, labeled(xt, counts.double()),
+                **MAIN_KW)
+
+    # uint16: promoted to float32 (exactly: the counts fit its 24 bits), so
+    # every route gives the float32 pipeline's result on the same values bit
+    # for bit.  Against float64 both err by the float32 rounding of the
+    # fields' mean (2048 against a spread of 1182), which shows at DC
+    u16 = labeled(xt, counts.to(torch.uint16))
+    f32 = labeled(xt, counts.float())
+    must = {"torch": ("mirror_psd",), "kernel": ("fft_fourstep",
+                                                 "mirror_psd"),
+            "matmul": ("dot",)}
+    for impl, names in must.items():
+        ps, n = counted(kernels, lambda: under(impl, xt.power_spectrum, u16,
+                                               **MAIN_KW))
+        same = under(impl, xt.power_spectrum, f32, **MAIN_KW)
+        err = rel_err(ps.data, ref.data)
+        worst = tuple(int(i) for i in np.unravel_index(
+            int((ps.data.double() - ref.data).abs().argmax()), MAIN_SHAPE))
+        check(ps.dtype == torch.float32 and ps.shape == MAIN_SHAPE
+              and tuple(ps.dims) == ("time", "freq_y", "freq_x")
+              and bool(torch.isfinite(ps.data).all()),
+              f"uint16 PSD {impl}: unexpected output {ps!r}")
+        check(torch.equal(ps.data, same.data),
+              f"uint16 PSD {impl}: differs from the float32 pipeline on the "
+              f"same values")
+        check(err <= U16_LIMIT, f"uint16 PSD {impl}: rel err {err:.3e} vs "
+              f"the float64 values > {U16_LIMIT}")
+        check(all(n[k] > 0 for k in names),
+              f"uint16 PSD {impl}: launches {n}, expected {names}")
+        log(f"phase 27: uint16 PSD {MAIN_SHAPE}, fft_impl={impl!r}: float32, "
+            f"equal bit for bit to the float32 pipeline on the same values; "
+            f"rel err vs the float64 values through 'torch' {err:.3e} "
+            f"(limit {U16_LIMIT}), largest at {worst} (DC is (b, 2048, "
+            f"2048)); launches {n}")
+        del ps, same
+
+    # int32: promoted to float64, "kernel" (K4) against "torch"
+    i32 = labeled(xt, counts)
+    out = {}
+    for impl, names in (("torch", ("mirror_psd",)),
+                        ("kernel", ("dft64", "mirror_psd"))):
+        out[impl], n = counted(kernels, lambda: under(
+            impl, xt.power_spectrum, i32, **MAIN_KW))
+        check(out[impl].dtype == torch.float64
+              and out[impl].shape == MAIN_SHAPE,
+              f"int32 PSD {impl}: unexpected output {out[impl]!r}")
+        check(all(n[k] > 0 for k in names),
+              f"int32 PSD {impl}: launches {n}, expected {names}")
+        log(f"phase 27: int32 PSD {MAIN_SHAPE}, fft_impl={impl!r}: float64, "
+            f"launches {n}")
+    err = rel_err(out["kernel"].data, out["torch"].data)
+    e_ref = rel_err(out["torch"].data, ref.data)
+    check(err <= 1e-12 and e_ref <= 1e-12,
+          f"int32 PSD: 'kernel' vs 'torch' {err:.3e}, 'torch' vs the "
+          f"float64 values {e_ref:.3e} (limit 1e-12)")
+    log(f"phase 27: int32 PSD: rel err 'kernel' vs 'torch' {err:.3e}, "
+        f"'torch' vs the float64 values {e_ref:.3e} (limit 1e-12)")
+    del out, ref
+
+    # int16 series through the segment estimators, constant detrend
+    s16 = torch.randint(-3000, 3000, SG_SHAPE, generator=g, device=DEV,
+                        dtype=torch.int16)
+    sig = xt.LabeledArray(s16, dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    sig64 = sig.copy(data=s16.double())
+    for name, kw in (("welch", dict(dim="t", seglen=SG_SEG)),
+                     ("spectrogram", dict(dim="t", seglen=SG_SEG)),
+                     ("periodogram", dict(dim="t"))):
+        fn = getattr(xt, name)
+        got, want = fn(sig, **kw), fn(sig64, **kw)
+        err = rel_err(got.data, want.data)
+        check(got.dtype == torch.float32 and got.shape == want.shape
+              and bool(torch.isfinite(got.data).all()) and err <= 1e-5,
+              f"int16 {name}: {got!r}, rel err {err:.3e}")
+        log(f"phase 27: {name} of int16 {SG_SHAPE}, detrend='constant': "
+            f"float32 {tuple(got.shape)}, rel err vs the float64 values "
+            f"{err:.3e} (limit 1e-5)")
+        del got, want
+    del s16, sig, sig64
+
+    # complex pad, bit for bit against numpy.pad
+    fld = labeled(xt, field(MAIN_SHAPE, 272, torch.complex64))
+    host = fld.values
+    widths = dict(y=(3, 5), x=(70, 1))
+    for mode, kw in REPAIR_PAD_MODES:
+        got = xt.pad(fld, widths, mode=mode, **kw)
+        torch.cuda.synchronize()
+        check(got.data.is_cuda, f"complex pad {mode}: left the card")
+        want = np.pad(host, [(0, 0), widths["y"], widths["x"]], mode=mode,
+                      **kw)
+        g_h = got.values
+        check(g_h.dtype == want.dtype and np.array_equal(g_h, want),
+              f"complex pad {mode} {kw}: differs from numpy.pad")
+        t_pad = wall_ms(lambda: xt.pad(fld, widths, mode=mode, **kw),
+                        runs=3, warmup=1)
+        log(f"phase 27: pad {mode} {kw} of complex64 {MAIN_SHAPE} on y and "
+            f"x: equal to numpy.pad bit for bit; {t_pad:.3f} ms [{card}]")
+        del got, g_h, want
+    del fld, host
+
+    # float16: the real transform raises, the complex one promotes
+    h = labeled(xt, field(MAIN_SHAPE, 273).half())
+    ref = under("torch", xt.fft, h.copy(data=h.data.double()),
+                dim=["y", "x"])
+    for impl in ("torch", "kernel", "matmul"):
+        try:
+            under(impl, xt.fft, h, dim=["y", "x"], real_dim="x")
+        except ValueError as e:
+            check(str(e) == RFFT16, f"float16 rfft {impl}: {e}")
+        else:
+            raise AssertionError(f"float16 rfft {impl}: did not raise")
+        f, n = counted(kernels, lambda: under(impl, xt.fft, h,
+                                              dim=["y", "x"]))
+        err = rel_err(f.data, ref.data)
+        check(f.dtype == torch.complex64 and err <= 1e-5
+              and (impl != "kernel" or n["fft_fourstep"] > 0),
+              f"float16 fft {impl}: {f.dtype}, rel err {err:.3e}, "
+              f"launches {n}")
+        log(f"phase 27: float16 {MAIN_SHAPE}, fft_impl={impl!r}: the real "
+            f"fft raises ValueError({RFFT16!r}); the complex fft gives "
+            f"complex64, rel err vs complex128 {err:.3e} (limit 1e-5), "
+            f"launches {n}")
+        del f
+    del h, ref
+
+    # the cost of the promotion, beside the float32 flagship
+    ms = {label: wall_ms(lambda: under("torch", xt.power_spectrum, da,
+                                       **MAIN_KW), runs=5)
+          for label, da in (("float32", f32), ("uint16", u16),
+                            ("int32", i32))}
+    log(f"phase 27: flagship PSD {MAIN_SHAPE} under 'torch', ms by input "
+        f"dtype: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f" [{card}]")
+
+
 def main():
     # ---- phase 1: device, versions, build --------------------------------
     if not torch.cuda.is_available():
@@ -2072,6 +2241,11 @@ def main():
                     "binned_sum": binning.binned_sum,
                     "dft64": dft64.dft_last, "dot": dot.dot,
                     "dot_fold": dot.dot_fold, "dot_dma": dot.dot_dma}, card)
+
+    # ---- phase 27: integer, float16 and complex input ---------------------
+    repair_phase(xt, {"mirror_psd": mirror.mirror_psd,
+                      "fft_fourstep": fft_fourstep.fft_last,
+                      "dft64": dft64.dft_last, "dot": dot.dot}, card)
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]

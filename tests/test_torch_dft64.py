@@ -23,6 +23,7 @@ from xrft_tpu.ops.df64_fft import df64_fft_nd, df64_to_numpy
 from xrft_tpu.ops.matmul_fft import _dft_matrix_np, _largest_small_divisor
 from xrft_tpu_torch.config import fft_impl
 from xrft_tpu_torch.ops import dft64, fft_core
+from xrft_tpu_torch.ops.fft_fourstep import fft_last
 
 NUMPY_TOL = 1e-12
 DF64_CPU_TOL = 5e-6
@@ -178,7 +179,14 @@ def test_fft_core_kernel_route_raises_on_what_it_cannot_run():
     with fft_impl("kernel"):
         with pytest.raises(ValueError, match="factor pair"):
             fft_core.fftn(torch.zeros(2, 96), [1])
+        # a dtype: float16 reaches no kernel; a complex transform promotes
+        # it to complex64 (K2), a real one raises the JAX package's error
         with pytest.raises(ValueError, match="float32/complex64"):
-            fft_core.fftn(torch.zeros(2, 256, dtype=torch.float16), [1])
+            fft_last(torch.zeros(2, 256, dtype=torch.float16), -1)
+        assert fft_core.fftn(torch.zeros(2, 256, dtype=torch.float16),
+                             [1]).dtype == torch.complex64
+        with pytest.raises(ValueError, match="RFFT input must be float32 "
+                           "or float64, got float16"):
+            fft_core.rfftn(torch.zeros(2, 256, dtype=torch.float16), [1])
         with pytest.raises(NotImplementedError, match="prime size"):
             fft_core.fftn(torch.zeros(2, 257, dtype=torch.float64), [1])

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dtypes import promote
 from .labeled import LabeledArray
 from .ops import shards
 
@@ -50,17 +51,23 @@ def detrend(da: LabeledArray, dim, detrend_type="constant") -> LabeledArray:
 
     if detrend_type is None:
         return da
+    # integer, bool and float16 data in the dtype xrft_tpu computes them in
+    # (``dtypes``): JAX's mean for "constant", numpy's result_type(dtype,
+    # float32) for "linear"
     if detrend_type == "constant":
-        return da - da.mean(dim=dim)
+        x = da.copy(data=promote(da.data))
+        return x - x.mean(dim=dim)
     axes = tuple(da.get_axis_num(d) for d in dim)
-    xl = shards.local(da.data)
-    return da.copy(data=shards.like(da.data, xl - _linear_fit(da.data, axes)))
+    x = promote(da.data, "numpy")
+    return da.copy(data=shards.like(x, shards.local(x) - _linear_fit(x, axes)))
 
 
 def _linear_fit(x: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
     """The least-squares linear trend of x over `axes` (broadcast over the
-    remaining axes), in x's dtype; for a sharded ``x``, the trend of its
-    local block."""
+    remaining axes), in x's dtype, which must be inexact; for a sharded
+    ``x``, the trend of its local block.  The mean is in that dtype too:
+    ``xrft_tpu`` rounds it to JAX's mean dtype of the input (float32 for
+    int32 data, float16 for float16), which the port does not repeat."""
     xl = shards.local(x)
     n_el = 1.0
     for a in axes:

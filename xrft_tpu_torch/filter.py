@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from . import coords as ce
 from .config import engine_impl, full_fp32
+from .dtypes import promote
 from .convolve import _fft_convolve
 from .labeled import Coord, LabeledArray
 from .padding import _pad_constant
@@ -162,11 +163,6 @@ def _zero_stuff(x, ax, up):
     return stuffed.reshape(shape[:ax] + [shape[ax] * up] + shape[ax + 1:])
 
 
-def _float_data(x: torch.Tensor) -> torch.Tensor:
-    return x if x.is_floating_point() or x.is_complex() \
-        else x.to(torch.float64)
-
-
 def upfirdn(h, da, up=1, down=1, dim=None, mode="constant", cval=0,
             engine=None):
     """Upsample by ``up`` (zero-stuffing), apply the FIR filter ``h`` (a
@@ -191,7 +187,7 @@ def upfirdn(h, da, up=1, down=1, dim=None, mode="constant", cval=0,
     ax = da.dims.index(dim)
     n = da.sizes[dim]
 
-    x = _zero_stuff(_float_data(da.data), ax, up)
+    x = _zero_stuff(promote(da.data, "float64"), ax, up)
     with engine_impl(engine):
         y = _fft_convolve(x, along(h, x, ax), [ax], [n * up], [h.size])
     n_out = _output_len(h.size, n, up, down)
@@ -298,7 +294,7 @@ def resample_poly(da, up, down, dim=None, window=("kaiser", 5.0),
     background = None
     x = da
     if padtype in ("mean", "median", "minimum", "maximum"):
-        data = _float_data(da.data)
+        data = promote(da.data, "float64")
         if data.is_complex():
             background = torch.complex(_background(data.real, ax, padtype),
                                        _background(data.imag, ax, padtype))
@@ -451,7 +447,7 @@ def savgol_filter(da, window_length, polyorder, deriv=0, delta=1.0,
     halflen = w // 2
     coeffs = savgol_coeffs(w, polyorder, deriv=deriv, delta=delta)
 
-    x = _float_data(da.data)
+    x = promote(da.data, "float64")
     if mode == "interp" and w > n:
         raise ValueError("If mode is 'interp', window_length must be "
                          "less than or equal to the size of x.")

@@ -68,10 +68,14 @@ def fft_hp(da: LabeledArray, spacing_tol: float = 1e-3, dim=None,
         raise ValueError("segment_overlap requires chunks_to_segments=True")
     if chunks_to_segments:
         da = _stack_segments(da, dim, overlap=segment_overlap)
-    return fft(_promote(da), spacing_tol, dim=dim, real_dim=real_dim,
-               shift=shift, detrend=detrend, window=window,
-               true_phase=true_phase, true_amplitude=true_amplitude,
-               prefix=prefix, engine=engine)
+    out = fft(_promote(da), spacing_tol, dim=dim, real_dim=real_dim,
+              shift=shift, detrend=detrend, window=window,
+              true_phase=true_phase, true_amplitude=true_amplitude,
+              prefix=prefix, engine=engine)
+    # the window and mean steps of ``fft`` drop the name; the JAX
+    # package's hp transform keeps it
+    out.name = da.name
+    return out
 
 
 def ifft_hp(daft: LabeledArray, spacing_tol: float = 1e-3, dim=None,

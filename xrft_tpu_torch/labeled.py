@@ -2,8 +2,8 @@
 
 Counterpart of ``xrft_tpu/labeled.py``: bulk data is a ``torch.Tensor`` on
 the device it was given; dims, coordinates and attrs are host-side metadata
-(coordinates are always host numpy, as in the reference).  Only the subset
-of the xarray.DataArray surface that the ported slice uses is here.
+(coordinates are always host numpy, as in the reference).  The methods are
+those of ``xrft_tpu``'s LabeledArray, without its JAX pytree hooks.
 
 The data may be a sharded ``DTensor`` (:mod:`.parallel`): arithmetic,
 reductions and ``sortby`` then work on each rank's local block
@@ -19,6 +19,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .dtypes import promote
 from .ops import shards
 
 __all__ = ["Coord", "LabeledArray", "resolve_device"]
@@ -54,9 +55,47 @@ class Coord:
         self.attrs = dict(attrs) if attrs else {}
         self.name = name
 
+    # the accessors of xrft_tpu's Coord (``xrft_tpu/labeled.py:81-121``)
+    @property
+    def size(self) -> int:
+        return self.values.size
+
     @property
     def shape(self):
         return self.values.shape
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def data(self) -> np.ndarray:
+        return self.values
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def __getitem__(self, idx):
+        return self.values[idx]
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.values, dtype=dtype)
+
+    def __getattr__(self, key):
+        # xarray-style access to attrs (``coord.spacing``); never for
+        # dunder names, which copy and pickle look up before attrs exists
+        if key.startswith("__"):
+            raise AttributeError(key)
+        try:
+            return self.attrs[key]
+        except KeyError:
+            raise AttributeError(key) from None
+
+    def max(self):
+        return self.values.max()
+
+    def min(self):
+        return self.values.min()
 
     def __repr__(self):
         return f"Coord({self.name or ''}{self.dims}, {self.values!r})"
@@ -160,6 +199,24 @@ class LabeledArray:
         return dict(zip(self.dims, self.data.shape))
 
     @property
+    def ndim(self) -> int:
+        return self.data.ndim
+
+    @property
+    def size(self) -> int:
+        return self.data.numel()
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.values
+        return out.astype(dtype) if dtype is not None else out
+
+    def __len__(self):
+        return self.shape[0]
+
+    def item(self):
+        return self.values.item()
+
+    @property
     def values(self) -> np.ndarray:
         """A host numpy copy of the data (lazy conjugate and negative views
         resolved).  Sharded data are gathered first (``full_tensor``, a
@@ -173,6 +230,17 @@ class LabeledArray:
         if isinstance(dim, (list, tuple)):
             return [self.dims.index(d) for d in dim]
         return self.dims.index(dim)
+
+    def __getitem__(self, key):
+        """``da["x"]``: the coordinate ``x``, as ``xrft_tpu``'s."""
+        if isinstance(key, str):
+            try:
+                return self.coords[key]
+            except KeyError:
+                raise KeyError(f"no coordinate {key!r}") from None
+        raise TypeError(
+            "positional indexing is not supported; use .isel(dim=indexer)"
+        )
 
     def __repr__(self):
         return (
@@ -263,10 +331,64 @@ class LabeledArray:
                 out.coords[cname] = c.copy()
         return out
 
+    def sel(self, indexers=None, method=None, **indexers_kwargs
+            ) -> "LabeledArray":
+        """Select by coordinate value along 1-D dim coords, as
+        ``xrft_tpu``'s: exact matches, or the nearest value with
+        ``method="nearest"``."""
+        indexers = dict(indexers or {})
+        indexers.update(indexers_kwargs)
+        isel_map = {}
+        for d, target in indexers.items():
+            if d not in self.coords:
+                raise KeyError(f"no coordinate for dim {d!r}")
+            vals = self.coords[d].values
+            idx = []
+            for tv in np.atleast_1d(np.asarray(target)):
+                if method == "nearest":
+                    idx.append(int(np.argmin(np.abs(vals - tv))))
+                    continue
+                hits = np.nonzero(vals == tv)[0]
+                if hits.size == 0:
+                    raise KeyError(
+                        f"value {tv!r} not found in coordinate {d!r}")
+                idx.append(int(hits[0]))
+            isel_map[d] = idx[0] if np.ndim(target) == 0 else np.asarray(idx)
+        return self.isel(isel_map)
+
+    def drop_vars(self, names) -> "LabeledArray":
+        out = self.copy()
+        for n in [names] if isinstance(names, str) else names:
+            out.coords.pop(n, None)
+        return out
+
+    def rename(self, name) -> "LabeledArray":
+        out = self.copy()
+        out.name = name
+        return out
+
     def assign_attrs(self, **attrs) -> "LabeledArray":
         out = self.copy()
         out.attrs.update(attrs)
         return out
+
+    def dropna(self, dim) -> "LabeledArray":
+        """Drop the labels along ``dim`` where the data (any over the other
+        dims) or the dim coordinate is NaN, as ``xrft_tpu``'s."""
+        axis = self.get_axis_num(dim)
+        mask = np.zeros(self.shape[axis], dtype=bool)
+        if self.dtype.is_floating_point or self.dtype.is_complex:
+            other = [a for a in range(self.ndim) if a != axis]
+            nan = self.data.isnan()
+            mask |= (nan.any(dim=other) if other else nan).cpu().numpy()
+        if dim in self.coords:
+            cvals = self.coords[dim].values
+            if np.issubdtype(cvals.dtype, np.floating):
+                mask |= np.isnan(cvals)
+        keep = np.nonzero(~mask)[0]
+        if keep.size == self.shape[axis]:
+            return self.copy()
+        return self.isel({dim: keep})
 
     def chunk(self, chunks=None, **chunks_kwargs) -> "LabeledArray":
         """Declare chunk lengths per dim (metadata only), which
@@ -313,15 +435,94 @@ class LabeledArray:
         return out
 
     def mean(self, dim=None):
-        return self._reduce(torch.mean, dim)
+        """The mean over ``dim``; integer and bool data give JAX's float
+        dtype for them (:mod:`.dtypes`), as ``xrft_tpu``'s ``mean``."""
+        return self.copy(data=promote(self.data))._reduce(torch.mean, dim)
 
     def sum(self, dim=None):
         return self._reduce(torch.sum, dim)
+
+    def max(self, dim=None):
+        return self._local_reduce(torch.amax, dim)
+
+    def min(self, dim=None):
+        return self._local_reduce(torch.amin, dim)
+
+    def std(self, dim=None):
+        """Population standard deviation (numpy's ``ddof=0``)."""
+        return self.copy(data=promote(self.data))._local_reduce(
+            lambda x, dim: torch.std(x, dim=dim, correction=0), dim)
+
+    def var(self, dim=None):
+        """Population variance (numpy's ``ddof=0``)."""
+        return self.copy(data=promote(self.data))._local_reduce(
+            lambda x, dim: torch.var(x, dim=dim, correction=0), dim)
+
+    def _local_reduce(self, fn, dim):
+        """``fn`` over ``dim`` of unsharded data; of the reductions only
+        ``mean`` and ``sum`` cross the shards."""
+        if shards.is_sharded(self.data):
+            raise NotImplementedError(
+                "only mean and sum reduce sharded data")
+        return self._reduce(fn, dim)
+
+    def median(self, dim=None):
+        """The median over ``dim``, as ``xrft_tpu``'s (numpy's: the mean of
+        the two middle values for an even count), e.g. to average Welch
+        segments robustly."""
+        return self._local_reduce(_median, dim)
 
     # ---------------------------------------------------------- elementwise
     def conj(self) -> "LabeledArray":
         """Complex conjugate (a lazy torch view; real data unchanged)."""
         return self.copy(data=self.data.conj())
+
+    @property
+    def real(self) -> "LabeledArray":
+        return self.copy(data=self.data.real)
+
+    @property
+    def imag(self) -> "LabeledArray":
+        """The imaginary part; zeros for real data, as numpy's."""
+        x = self.data
+        return self.copy(data=x.imag if x.is_complex() else torch.zeros_like(x))
+
+    def astype(self, dtype) -> "LabeledArray":
+        """The data cast to ``dtype`` (a torch dtype, or anything
+        ``numpy.dtype`` takes)."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+        return self.copy(data=self.data.to(dtype))
+
+    def fillna(self, value) -> "LabeledArray":
+        """NaNs replaced by ``value`` (and infinities by the dtype's
+        extremes, as numpy's and JAX's ``nan_to_num``)."""
+        return self.copy(data=torch.nan_to_num(self.data, nan=value))
+
+    def where(self, cond, other=np.nan) -> "LabeledArray":
+        """The values where ``cond`` holds, ``other`` (NaN) elsewhere;
+        a LabeledArray ``cond`` broadcasts by dim name."""
+        if not isinstance(cond, LabeledArray):
+            c = torch.as_tensor(np.asarray(cond), device=self.device)
+            return self.copy(data=torch.where(c, self.data, other))
+        out_dims = list(self.dims) + [d for d in cond.dims
+                                      if d not in self.dims]
+        out = LabeledArray.__new__(LabeledArray)
+        out.data = torch.where(_expand_to(cond, out_dims),
+                               _expand_to(self, out_dims), other)
+        out.dims = tuple(out_dims)
+        out.attrs = dict(self.attrs)
+        out.name = self.name
+        out.coords = {k: v.copy() for k, v in self.coords.items()}
+        for k, v in cond.coords.items():
+            out.coords.setdefault(k, v.copy())
+        return out
+
+    def __abs__(self):
+        return self.copy(data=self.data.abs())
+
+    def __neg__(self):
+        return self.copy(data=-self.data)
 
     # -------------------------------------------- dim-aligned binary ops
     def _binary(self, other, op, reflexive=False) -> "LabeledArray":
@@ -402,6 +603,17 @@ def _expand_to(da: LabeledArray, out_dims: Sequence[str]) -> torch.Tensor:
     data = da.data.permute([da.dims.index(d) for d in own])
     return data.reshape([da.sizes[d] if d in da.dims else 1
                          for d in out_dims])
+
+
+def _median(x: torch.Tensor, dim) -> torch.Tensor:
+    """numpy's median of ``x`` over the axes ``dim``: the axes are moved
+    last and flattened, then the 0.5 quantile (linear between the two
+    middle values) is taken."""
+    dim = sorted(d % x.ndim for d in dim)
+    keep = [a for a in range(x.ndim) if a not in dim]
+    flat = x.permute(*keep, *dim).reshape(
+        [x.shape[a] for a in keep] + [-1])
+    return torch.quantile(flat, 0.5, dim=-1)
 
 
 def _sharded_reduce(x, fn, axes) -> torch.Tensor:

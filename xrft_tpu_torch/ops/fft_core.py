@@ -24,6 +24,13 @@ scaling rule downstream is implementation-independent:
                    float32 data.  The shifts are absorbed into the engines'
                    weights where the factors allow.
 
+Every transform takes its input's dtype as the JAX package's transforms
+(``lax.fft``) do, whatever the route: a complex transform of integer, bool
+or float16 data gives complex64 (complex128 for 64-bit integers); a real
+transform promotes integer and bool data to float32 or float64 and raises
+for float16 and complex data, with JAX's messages.  float32, float64 and
+complex data reach the route as they are.
+
 ``pre_shift_axes`` ifftshift the input and ``post_shift_axes`` shift the
 output (``post_kind`` "fftshift" or, for the inverses, "ifftshift"), as in
 the JAX package's engines.
@@ -36,6 +43,7 @@ import math
 import torch
 
 from ..config import FFT_IMPLS, config
+from ..dtypes import complex_dtype, promote
 from .dft64 import fftn64
 from .fft_fourstep import fft_last
 from .matmul_fft import matmul_fft_nd
@@ -67,6 +75,28 @@ def _kernel_fftn(x: torch.Tensor, axes, inverse=False) -> torch.Tensor:
     return out
 
 
+def _input(x: torch.Tensor, real: bool) -> torch.Tensor:
+    """``x`` in a dtype the transform takes: complex, float32 and float64
+    data as they are (so real data keep the real-input modes of K2 and
+    K5a); for a real transform (``real``), JAX's float promotion of the
+    rest, which must give float32 or float64; for a complex one, integer
+    and bool data in JAX's float (whose transform has JAX's complex dtype)
+    and float16 in complex64."""
+    if x.dtype in (torch.float32, torch.float64) or (x.is_complex()
+                                                     and not real):
+        return x
+    if not real:
+        return x.to(complex_dtype(x.dtype)) if x.is_floating_point() \
+            else promote(x)
+    if x.is_complex():
+        raise ValueError("only real valued inputs supported for rfft")
+    x = promote(x)
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError("RFFT input must be float32 or float64, got "
+                         f"{str(x.dtype).removeprefix('torch.')}")
+    return x
+
+
 def _norm(axes, ndim):
     return [a % ndim for a in ([axes] if isinstance(axes, int) else axes)]
 
@@ -83,6 +113,7 @@ def _post(out, post_shift_axes, post_kind):
 
 def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     """Complex N-D FFT over ``axes``."""
+    x = _input(x, real=False)
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
         return matmul_fft_nd(x, axes, "fft", pre_shift_axes,
@@ -99,6 +130,7 @@ def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
 def ifftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
           post_kind="fftshift"):
     """Complex N-D inverse FFT over ``axes``, scaled by 1/prod(n)."""
+    x = _input(x, real=False)
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
         return matmul_fft_nd(x, axes, "ifft", pre_shift_axes,
@@ -115,6 +147,7 @@ def ifftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
 def rfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     """Real N-D FFT; the half-spectrum axis is ``axes[-1]``, which keeps
     ``n//2 + 1`` columns."""
+    x = _input(x, real=True)
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
         return matmul_fft_nd(x, axes, "rfft", pre_shift_axes,
@@ -141,6 +174,7 @@ def irfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
     part at DC and Nyquist as numpy does.  ``"matmul"`` inverts the other
     axes (stacked where it can plan them), then runs the packed half-length
     inverse, which zeroes those imaginary parts first."""
+    x = _input(x, real=False)
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
         return matmul_fft_nd(x, axes, "irfft", pre_shift_axes,

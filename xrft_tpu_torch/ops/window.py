@@ -34,11 +34,16 @@ WINDOW_TYPES = [
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
     """The real dtype that multiplies data of ``dtype`` without promoting
-    it: the dtype itself for floats, its component dtype for complex, and
-    float64 for anything else."""
+    it past single precision: the dtype itself for float32 and float64, its
+    component dtype for complex, float32 for float16 and bfloat16 (which
+    ``xrft_tpu`` windows in float64, and a transform would reject), and
+    float64 for integer and bool data, as ``xrft_tpu``'s float64 window
+    promotes them."""
     if dtype.is_complex:
         return dtype.to_real()
-    return dtype if dtype.is_floating_point else torch.float64
+    if dtype.is_floating_point:
+        return torch.float32 if dtype.itemsize < 4 else dtype
+    return torch.float64
 
 
 def build_window(da: LabeledArray, dims, window_type="hann", dtype=None,

@@ -205,6 +205,13 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
+def _integer(dtype: torch.dtype) -> bool:
+    """numpy's integer kinds: ``numpy.pad`` rounds (a statistic) or floors
+    (a ramp) for them, and casts bool data without either."""
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
+
+
 def _cat(parts, axis):
     return torch.cat([p for p in parts if p.shape[axis]], dim=axis)
 
@@ -223,15 +230,28 @@ def _ramp(end, edge, num, axis, dtype):
     delta = edge.to(tdt) - start
     shape = [1] * edge.ndim
     shape[axis] = num
-    y = torch.arange(num, dtype=tdt, device=edge.device).reshape(shape)
+    # complex data: numpy's complex arange has zero imaginary parts, and it
+    # divides by num + 0j as a product with the reciprocal 1/num; so each
+    # of its complex operations is one real operation per component, which
+    # runs here in the component dtype
+    rdt = tdt.to_real() if tdt.is_complex else tdt
+    y = torch.arange(num, dtype=rdt, device=edge.device).reshape(shape)
     # a tensor divisor: torch's CUDA kernels divide by a Python number as a
     # product with its reciprocal, which rounds apart from numpy's division
-    div = torch.full((), num, dtype=tdt, device=edge.device)
-    step = delta / div
+    div = torch.full((), num, dtype=rdt, device=edge.device)
+    if tdt.is_complex:
+        inv = 1 / div
+        parts = (delta.real, delta.imag)
+        steps = [d * inv for d in parts]
+        y_div = y * inv
+    else:
+        parts, steps, y_div = (delta,), (delta / div,), y / div
     # numpy's branch on a zero step, taken on the device without a sync
-    y = torch.where((step == 0).any(), y / div * delta, y * step)
+    zero = torch.stack([s == 0 for s in steps]).all(0).any()
+    ys = [torch.where(zero, y_div * d, y * s) for d, s in zip(parts, steps)]
+    y = torch.complex(*ys) if tdt.is_complex else ys[0]
     y = y + start
-    if not (dtype.is_floating_point or dtype.is_complex):
+    if _integer(dtype):
         y = torch.floor(y)
     return y.to(dtype)
 
@@ -251,27 +271,67 @@ def _pad_linear_ramp(data, axis, width, ends):
     return _cat(parts, axis) if len(parts) > 1 else data
 
 
+def _complex_order(x, axis):
+    """The indices that sort complex ``x`` along ``axis`` in numpy's order:
+    lexicographic in (real, imaginary), then the NaNs, as
+    ``R + nanj < nan + Rj < nan + nanj``."""
+    re, im = x.real, x.imag
+    nan_class = re.isnan().to(torch.int8) * 2 + im.isnan().to(torch.int8)
+    order = im.argsort(dim=axis, stable=True)
+    for key in (re, nan_class):      # stable sorts by the later keys first
+        order = order.gather(axis, key.gather(axis, order).argsort(
+            dim=axis, stable=True))
+    return order
+
+
+def _complex_extreme(chunk, axis, mode):
+    """numpy's maximum or minimum of complex ``chunk`` along ``axis``:
+    lexicographic in (real, imaginary), the extreme real part first, then
+    the extreme imaginary part among its ties; the first element with a NaN
+    part wins, as numpy's complex maximum and minimum propagate it."""
+    pick, fill = (torch.amax, -torch.inf) if mode == "maximum" \
+        else (torch.amin, torch.inf)
+    re = pick(chunk.real, dim=axis, keepdim=True)
+    im = pick(torch.where(chunk.real == re, chunk.imag, fill), dim=axis,
+              keepdim=True)
+    nan = chunk.real.isnan() | chunk.imag.isnan()
+    first_nan = chunk.gather(axis, nan.to(torch.int8).argmax(
+        dim=axis, keepdim=True))
+    return torch.where(nan.any(dim=axis, keepdim=True), first_nan,
+                       torch.complex(re, im))
+
+
 def _stat(chunk, axis, mode, dtype):
     """numpy's statistic of ``chunk`` along ``axis`` (kept as length 1),
-    rounded half to even for integer data as ``numpy.pad`` rounds it."""
+    rounded half to even for integer data as ``numpy.pad`` rounds it;
+    complex data are ordered as numpy orders them (:func:`_complex_order`)."""
     inexact = dtype.is_floating_point or dtype.is_complex
-    if mode == "maximum":
-        return chunk.amax(dim=axis, keepdim=True)
-    if mode == "minimum":
+    if mode in ("maximum", "minimum"):
+        if chunk.is_complex():
+            return _complex_extreme(chunk, axis, mode)
+        if mode == "maximum":
+            return chunk.amax(dim=axis, keepdim=True)
         return chunk.amin(dim=axis, keepdim=True)
     work = chunk if inexact else chunk.double()
     if mode == "mean":
         out = work.mean(dim=axis, keepdim=True)
     else:
-        srt = work.sort(dim=axis).values
+        # numpy's median: the middle of the sorted values (the mean of the
+        # two middles for even n); where a value is NaN, the last of them
+        # (NaN, and for complex data the largest NaN in numpy's order)
+        cplx = work.is_complex()
+        srt = work.gather(axis, _complex_order(work, axis)) if cplx \
+            else work.sort(dim=axis).values
         n = srt.shape[axis]
         out = srt.narrow(axis, n // 2, 1)
         if n % 2 == 0:
             out = (srt.narrow(axis, n // 2 - 1, 1) + out) / 2
-        if work.is_floating_point():     # numpy's median of a NaN is NaN
+        if work.is_floating_point() or cplx:
+            last = srt.narrow(axis, n - 1, 1) if cplx \
+                else torch.full_like(out, float("nan"))
             out = torch.where(work.isnan().any(dim=axis, keepdim=True),
-                              torch.full_like(out, float("nan")), out)
-    return out if inexact else torch.round(out)
+                              last, out)
+    return torch.round(out) if _integer(dtype) else out
 
 
 def _pad_stat(data, axis, width, lengths, mode):

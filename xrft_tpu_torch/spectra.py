@@ -256,8 +256,9 @@ def _two_sided_coords(daft, da, dims, half_dim, kwargs, shift, n_full):
 def _mirror_kernel_applicable(da, dims, half_dim) -> bool:
     """True when kernel K1 expands this request: ``psd_mirror_impl`` is
     "kernel", exactly two transform dims, the half dim trailing and the
-    other one immediately left of it, float32/float64 data
-    (``xrft_tpu/spectra.py:294-320`` without the TPU's size limits)."""
+    other one immediately left of it, real data (``xrft_tpu/spectra.py:
+    294-320`` without the TPU's size limits): the transform takes integer
+    data to float32 or float64, so K1 gets complex64 or complex128."""
     impl = config.psd_mirror_impl
     if impl not in MIRROR_IMPLS:
         raise ValueError(f"unknown psd_mirror_impl {impl!r}; expected one "
@@ -267,7 +268,7 @@ def _mirror_kernel_applicable(da, dims, half_dim) -> bool:
     od = da.dims
     other = [d for d in dims if d != half_dim][0]
     return (len(od) >= 2 and od[-1] == half_dim and od[-2] == other
-            and da.dtype in (torch.float32, torch.float64))
+            and not da.dtype.is_complex)
 
 
 def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):

@@ -18,6 +18,7 @@ import torch
 
 from . import coords as ce
 from .config import ENGINE_NAMES, engine_impl
+from .dtypes import complex_dtype
 from .labeled import Coord, LabeledArray
 from .ops import fft_core, shards
 
@@ -464,7 +465,9 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
     """The body of :func:`ifft` once ``dim`` is ordered and ``lag`` holds one
     number per dim (``xrft_tpu/transform.py:480-615``)."""
     if true_phase:
-        cdtype = torch.promote_types(daft.dtype, torch.complex64)
+        # the phase factors in numpy.result_type(dtype, complex64), as
+        # xrft_tpu builds them
+        cdtype = complex_dtype(daft.dtype, "numpy")
         for d, l in zip(dim, lag):
             if float(l) == 0.0:
                 continue  # exp(0) = 1: skip the identity multiply pass
