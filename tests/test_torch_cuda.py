@@ -604,3 +604,25 @@ def test_one_rank_nccl_sharded_2d_roundtrip(cuda, mirror_impl):
         assert _rel(iso.data.to_local(), iso_ref.data) <= 2e-6
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["constant", "linear"])
+@pytest.mark.parametrize("field", ["counts", "sst"])
+def test_detrend_far_from_zero_mean_on_the_card(cuda, field, kind):
+    """The detrend of 8 x 1024^2 fields far from zero mean on the card
+    (12-bit counts, whose float32 residual sums the card's reductions bias,
+    and SST in kelvin), within 2e-6 of max |residual| of the same call on
+    the float64 values."""
+    from xrft_tpu_torch import detrend
+
+    g = torch.Generator(device=cuda).manual_seed(28)
+    if field == "counts":
+        x = torch.randint(0, 4096, (8, 1024, 1024), generator=g,
+                          device=cuda).float()
+    else:
+        x = 290 + 2 * torch.randn((8, 1024, 1024), generator=g, device=cuda)
+    dims = ("time", "y", "x")
+    got = detrend(LabeledArray(x, dims), ["y", "x"], kind).data
+    ref = detrend(LabeledArray(x.double(), dims), ["y", "x"], kind).data
+    assert got.dtype == torch.float32
+    assert _rel(got, ref) <= 2e-6

@@ -34,7 +34,7 @@ import xrft_tpu
 import xrft_tpu_torch as xt
 from xrft_tpu_torch.config import fft_impl
 
-from torch_parity import IMPLS, assert_same, pair
+from torch_parity import IMPLS, assert_nearer_float64, assert_same, pair
 
 DTYPES = ("float32", "float64", "complex64", "complex128", "int16", "int32",
           "int64", "uint8", "bool", "float16")
@@ -261,17 +261,21 @@ def test_pad_parity(mode, dtype):
 
 
 FAR_FAULT = pytest.mark.xfail(strict=True, reason=(
-    "float32 data far from zero mean (ROADMAP.md Queue 3, open): each "
-    "package rounds the mean of a 290 K field in float32 in its own order "
-    "of summation; the detrend leaves that rounding at DC, 1e-5 to 2e-4 of "
-    "max apart, where float32 parity is 2e-6"))
-# the entries whose DC bins carry the mean's rounding (a constant or linear
-# detrend of one field or two) fail; the isotropic sum averages DC with
-# its ring and holds
-FAR_ENTRIES = [pytest.param(e, marks=FAR_FAULT) for e in (
-    "power_spectrum", "fft_constant", "fft_real_linear_hann",
-    "cross_spectrum", "welch", "csd", "spectrogram")] + \
-    ["isotropic_cross_spectrum"]
+    "a defect of the reference: xrft_tpu rounds the float32 fit of a 290 K "
+    "field at the data's magnitude and errs at DC by 1e-5 to 2e-4 of max "
+    "against the same values in float64; the port keeps its fit in float64 "
+    "until the subtraction and errs by float32 grade "
+    "(test_torch_detrend_far.py), so the two stand that far apart, where "
+    "float32 parity is 2e-6"))
+# the entries that take a constant or linear detrend of one field or two
+FAR_NAMES = ("power_spectrum", "fft_constant", "fft_real_linear_hann",
+             "cross_spectrum", "welch", "csd", "spectrogram",
+             "isotropic_cross_spectrum")
+# the isotropic sum averages DC with its ring, where the reference's own
+# error is above 2e-6: the port, nearer float64, is held by the two-part check
+NEARER_FLOAT64 = ("isotropic_cross_spectrum",)
+FAR_ENTRIES = [e if e in NEARER_FLOAT64 else
+               pytest.param(e, marks=FAR_FAULT) for e in FAR_NAMES]
 
 
 def kelvin(dtype, shape, seed):
@@ -291,5 +295,13 @@ def test_float32_far_from_zero_mean_parity(entry, impl):
         want = call(xrft_tpu, ra, rb)
         with fft_impl(impl):
             got = call(xt, pa, pb)
+        if entry in NEARER_FLOAT64:
+            # the same float32 values, cast to float64
+            (ta, tb), _ = inputs("float64", kind, make=lambda d, s, seed:
+                                 kelvin("float32", s, seed).astype(d))
+            truth = call(xrft_tpu, ta, tb)
     assert got.values.dtype == SINGLE[np.asarray(want.values).dtype]
-    assert_same(got, want, TOL[np.dtype(np.float32)])
+    if entry in NEARER_FLOAT64:
+        assert_nearer_float64(got, want, truth, TOL[np.dtype(np.float32)])
+    else:
+        assert_same(got, want, TOL[np.dtype(np.float32)])

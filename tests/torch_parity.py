@@ -79,6 +79,22 @@ def assert_same(got, ref, tol):
             (np.abs(g - r).max(), np.abs(r).max())
 
 
+
+def assert_nearer_float64(got, want, truth, tol):
+    """The check of a port result that rounds less than ``xrft_tpu`` does
+    (a float32 detrend of data far from zero mean): ``got`` agrees with
+    ``truth``, the reference on the same values in float64, as
+    :func:`assert_same` at ``tol``; and it is no farther from ``want``, the
+    reference on the float32 values, than ``want`` is from ``truth``, plus
+    ``tol`` of max |truth|."""
+    assert_same(got, truth, tol)
+    g, w, t = got.values, np.asarray(want.values), np.asarray(truth.values)
+    keep = ~np.isnan(t)
+    scale = np.abs(t[keep]).max()
+    assert np.abs(g - w)[keep].max() <= \
+        np.abs(w - t)[keep].max() + tol * scale, \
+        (np.abs(g - w)[keep].max() / scale, np.abs(w - t)[keep].max() / scale)
+
 def check(name, refs, ports, impl, tol, **kw):
     """``xrft_tpu.<name>(*refs, **kw)`` against
     ``xrft_tpu_torch.<name>(*ports, **kw)`` run under ``fft_impl(impl)``;
