@@ -51,6 +51,10 @@ PyTorch version on the card, and drives four paths at full width:
     under cuFFT and the K4 recursion, welch, spectrogram and periodogram of
     int16 series, pad of complex64 data in the modes that order complex
     values, and float16 transforms, each held to xrft_tpu's dtype rules;
+    then float16 namesakes (dct/idct, dctn/idctn, DCT-I and DST-I, czt of
+    the flagship, resample_poly, decimate and savgol_filter of the 8 x 2^22
+    signal), each bit for bit the float32 call on the same values, with its
+    launches, within 1e-5 of the float64 values;
   * fields far from zero mean (phase 28): the flagship PSD of SST in
     kelvin and of surface pressure in Pa under every fft_impl and the Welch
     flagship of SST, each within 1e-5 of the same call on the float64
@@ -1863,7 +1867,8 @@ def repair_phase(xt, kernels, card):
     against numpy.pad bit for bit; float16 data, whose real fft raises
     xrft_tpu's ValueError under every route and whose complex fft
     promotes.  Then the PSD times of the integer inputs beside
-    the float32 flagship's."""
+    the float32 flagship's, and the float16 namesakes
+    (:func:`float16_namesakes`)."""
     g = torch.Generator(device=DEV).manual_seed(270)
     counts = torch.randint(0, 4096, MAIN_SHAPE, generator=g, device=DEV,
                            dtype=torch.int32)          # 12-bit counts
@@ -2001,6 +2006,93 @@ def repair_phase(xt, kernels, card):
     log(f"phase 27: flagship PSD {MAIN_SHAPE} under 'torch', ms by input "
         f"dtype: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
         + f" [{card}]")
+    del f32, u16, i32, counts
+    float16_namesakes(xt, kernels, card)
+
+
+F16_LIMIT = 1e-5               # a float32 pipeline against float64
+ALL_ROUTES = ("torch", "kernel", "matmul")
+
+
+def float16_case(xt, kernels, card, label, fn, h, impls, raises=()):
+    """``fn`` of the float16 data ``h`` under each route of ``impls``: a
+    float32 (complex64) result, bit for bit ``fn`` of the float32 copy
+    with the same kernel launches (and K2's under "kernel"), within
+    F16_LIMIT of ``fn`` of the float64 copy through cuFFT; both calls'
+    times.  Under each route of ``raises`` the float16 call raises the
+    float32 call's ValueError."""
+    f32 = h.copy(data=h.data.float())
+    ref = under("torch", fn, h.copy(data=h.data.double()))
+    expect = torch.complex64 if ref.data.is_complex() else torch.float32
+    for impl in impls:
+        got, n16 = counted(kernels, lambda: under(impl, fn, h))
+        want, n32 = counted(kernels, lambda: under(impl, fn, f32))
+        err = rel_err(got.data, ref.data)
+        check(got.dtype == expect and got.shape == ref.shape
+              and bool(torch.isfinite(got.data).all()),
+              f"float16 {label} {impl}: unexpected output {got!r}")
+        check(want.dtype == expect and torch.equal(got.data, want.data),
+              f"float16 {label} {impl}: differs from the float32 call on "
+              f"the same values")
+        check(err <= F16_LIMIT, f"float16 {label} {impl}: rel err "
+              f"{err:.3e} vs the float64 values > {F16_LIMIT}")
+        check(n16 == n32 and (impl != "kernel" or n16["fft_fourstep"] > 0),
+              f"float16 {label} {impl}: launches {n16}, the float32 call's "
+              f"{n32}")
+        del got, want
+        t16 = wall_ms(lambda: under(impl, fn, h), runs=3, warmup=1)
+        t32 = wall_ms(lambda: under(impl, fn, f32), runs=3, warmup=1)
+        log(f"phase 27: float16 {label}, fft_impl={impl!r}: "
+            f"{str(expect).removeprefix('torch.')}, equal bit for bit to the "
+            f"float32 call; rel err vs the float64 values {err:.3e} (limit "
+            f"{F16_LIMIT}); launches {n16} as float32's; float16 "
+            f"{t16:.3f} ms, float32 {t32:.3f} ms [{card}]")
+    for impl in raises:
+        errs = []
+        for d in (h, f32):
+            try:
+                under(impl, fn, d)
+            except ValueError as e:
+                errs.append(str(e))
+            else:
+                raise AssertionError(f"{label} {impl}: did not raise")
+        check(errs[0] == errs[1], f"float16 {label} {impl}: {errs}")
+        log(f"phase 27: float16 {label}, fft_impl={impl!r}: raises the "
+            f"float32 call's ValueError({errs[0]!r})")
+    del f32, ref
+
+
+def float16_namesakes(xt, kernels, card):
+    """Phase 27, the namesakes: float16 data compute in float32 from their
+    first operation, on every route.  dct/idct along x and dctn/idctn of the
+    flagship, DCT-I and DST-I along x (8190 and 8194 points, where cuFFT's
+    half precision would raise), czt along x, under each fft_impl;
+    resample_poly(3, 2), decimate(4) and savgol_filter(101, 3) of the 8 x
+    2^22 signal under cuFFT and the matmul engines (their transforms exceed
+    K2's lengths, so "kernel" raises, for float16 as for float32)."""
+    h = labeled(xt, field(MAIN_SHAPE, 274).half())
+    for label, fn in (
+            ("dct along x", lambda d: xt.dct(d, dim="x")),
+            ("idct along x", lambda d: xt.idct(d, dim="x")),
+            ("dctn", lambda d: xt.dctn(d, dim=["y", "x"])),
+            ("idctn", lambda d: xt.idctn(d, dim=["y", "x"])),
+            ("DCT-I along x (8190 points)",
+             lambda d: xt.dct(d, dim="x", type=1)),
+            ("DST-I along x (8194 points)",
+             lambda d: xt.dst(d, dim="x", type=1)),
+            ("czt along x", lambda d: xt.czt(d, dim="x"))):
+        float16_case(xt, kernels, card, f"{label} {MAIN_SHAPE}", fn, h,
+                     ALL_ROUTES)
+    del h
+    sig = xt.LabeledArray(field(SG_SHAPE, 275).half(), dims=("z", "t"),
+                          coords={"t": np.arange(SG_SHAPE[1]) * SG_DT})
+    for label, fn in (
+            ("resample_poly(3, 2)", lambda d: xt.resample_poly(d, 3, 2)),
+            ("decimate(4)", lambda d: xt.decimate(d, 4)),
+            ("savgol_filter(101, 3)",
+             lambda d: xt.savgol_filter(d, 101, 3))):
+        float16_case(xt, kernels, card, f"{label} {SG_SHAPE}", fn, sig,
+                     ("torch", "matmul"), raises=("kernel",))
 
 
 

@@ -11,11 +11,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from xrft_tpu_torch import (LabeledArray, convolve, dct, dctn, fft,
-                            fftconvolve, fht, hilbert, ifft,
+from xrft_tpu_torch import (LabeledArray, convolve, czt, dct, dctn, fft,
+                            fftconvolve, fht, hilbert, idct, ifft,
                             isotropic_cross_spectrum,
                             isotropic_power_spectrum, oaconvolve, pad,
-                            power_spectrum, resample, welch, zoom_fft)
+                            power_spectrum, resample, resample_poly, welch,
+                            zoom_fft)
 from xrft_tpu_torch.config import (binned_sum_impl, fft_impl, full_fp32,
                                    level0_impl, psd_mirror_impl)
 from xrft_tpu_torch.ops import (binning, dft64, dot, fft_core, fft_fourstep,
@@ -452,6 +453,57 @@ def test_direct_convolution_at_float32_grade(cuda):
         assert conv.fp32_precision == "tf32"
     finally:
         conv.fp32_precision = old
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32, torch.int64,
+                                   torch.uint8, torch.bool])
+def test_direct_convolution_of_integer_data(cuda, dtype):
+    """cuDNN has no integer convolution: integer and bool operands take the
+    direct route in float64 and return in their dtype, equal to the same
+    call on the CPU (numpy's direct convolution: integers wrapped, bool as
+    "any product")."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 120, (3, 700), generator=g).to(dtype)
+    k = torch.randint(0, 120, (9,), generator=g).to(dtype)
+    got, want = (convolve(LabeledArray(x.to(dev), ("z", "x")),
+                          LabeledArray(k.to(dev), ("x",)), method="direct")
+                 for dev in (cuda, "cpu"))
+    torch.cuda.synchronize()
+    assert got.data.is_cuda and got.dtype == dtype
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+@pytest.mark.parametrize("impl", ["torch", "kernel", "matmul"])
+def test_float16_namesakes_are_their_float32_calls(cuda, impl):
+    """float16 data compute in float32 from the first operation: dct, idct
+    (whose DCT-III path transforms a complex input), DCT-I, czt,
+    resample_poly and the direct convolution of float16 data are the
+    float32 calls on the same values, bit for bit, with the same K2
+    launches."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    h = torch.randn((4, 64, 512), generator=g, device=cuda).half()
+    da = LabeledArray(h, ("z", "y", "x"), {"x": np.arange(512) * 0.5})
+    taps = LabeledArray(h[0, 0, :9].contiguous(), ("x",))
+    calls = [
+        lambda d, t: dct(d, dim="x"),
+        lambda d, t: idct(d, dim="x", norm="ortho"),
+        lambda d, t: dct(d, dim="x", type=1),
+        lambda d, t: czt(d, dim="x", m=300),
+        lambda d, t: resample_poly(d, 3, 2, dim="x"),
+        lambda d, t: convolve(d, t, dims="x", method="direct"),
+    ]
+    for fn in calls:
+        before = fft_fourstep.fft_last.launches
+        with fft_impl(impl):
+            got = fn(da, taps)
+            n16 = fft_fourstep.fft_last.launches - before
+            want = fn(da.copy(data=h.float()),
+                      taps.copy(data=taps.data.float()))
+        n32 = fft_fourstep.fft_last.launches - before - n16
+        torch.cuda.synchronize()
+        assert got.dtype in (torch.float32, torch.complex64)
+        assert got.dtype == want.dtype and torch.equal(got.data, want.data)
+        assert n16 == n32
 
 
 @pytest.mark.parametrize("legacy", [None, True, False])

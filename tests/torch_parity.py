@@ -18,6 +18,8 @@ import warnings
 
 import numpy as np
 import numpy.testing as npt
+import pytest
+import torch
 
 import xrft_tpu
 import xrft_tpu_torch as xt
@@ -203,3 +205,201 @@ def assert_circle(got, want, atol):
     """Angles equal modulo 2 pi, to ``atol``."""
     d = np.angle(np.exp(1j * (np.asarray(got) - np.asarray(want))))
     assert np.abs(d).max() <= atol, np.abs(d).max()
+
+
+# ---------------------------------------------------------------------------
+# the dtype sweep of the scipy namesakes (test_torch_namesake_parity_*.py)
+# ---------------------------------------------------------------------------
+
+SWEEP_DTYPES = ("float32", "float64", "complex64", "complex128", "int16",
+                "int32", "int64", "uint8", "bool", "float16")
+# the port's single-precision counterpart of a reference result's dtype
+# (float16 data compute in float32, whatever dtype xrft_tpu returns)
+SINGLE_OF = {np.dtype(np.float64): np.dtype(np.float32),
+             np.dtype(np.complex128): np.dtype(np.complex64),
+             np.dtype(np.float16): np.dtype(np.float32)}
+_SINGLE_INPUTS = ("float32", "float16", "complex64")
+_SWEEP_Y, _SWEEP_X = np.arange(256) * 2.0, np.arange(256) * 0.5
+_SWEEP_KINDS = {
+    # kind: (shape, dims, coords)
+    "row": ((4, 256), ("y", "x"), {"y": _SWEEP_Y[:4], "x": _SWEEP_X}),
+    # DST-I transforms 2N+2 points: 255 samples reach K2 and K4 as 512
+    "row255": ((4, 255), ("y", "x"), {"y": _SWEEP_Y[:4],
+                                      "x": _SWEEP_X[:255]}),
+    "grid": ((256, 256), ("y", "x"), {"y": _SWEEP_Y, "x": _SWEEP_X}),
+    "long": ((4, 512), ("y", "x"), {"y": _SWEEP_Y[:4],
+                                    "x": np.arange(512) * 0.5}),
+}
+
+
+def _outcome(fn):
+    """(result, None) or (None, exception) of fn(), warnings silenced."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            return fn(), None
+        except Exception as e:       # noqa: BLE001 -- compared, not hidden
+            return None, e
+
+
+def _assert_same_error(got_err, want_err):
+    assert got_err is not None, f"the port returned where {want_err!r}"
+    assert type(got_err) is type(want_err) and \
+        str(got_err) == str(want_err), (got_err, want_err)
+
+
+def _assert_bits(got, want):
+    """Two port results with the same dtype and the same bits."""
+    assert got.data.dtype == want.data.dtype, (got.data.dtype,
+                                               want.data.dtype)
+    assert torch.equal(got.data, want.data)
+
+
+def _assert_same_outcome(got, want):
+    """Two port outcomes: the same error, or the same bits."""
+    (got, got_err), (want, want_err) = got, want
+    if want_err is not None:
+        _assert_same_error(got_err, want_err)
+    else:
+        assert got_err is None, got_err
+        _assert_bits(got, want)
+
+
+class NamesakeSweep:
+    """Every namesake of ``entries`` (name: (input kind, call, oracle)) on
+    the ten dtypes of :data:`SWEEP_DTYPES` under each route, through
+    ``xrft_tpu`` and through the port, with seeded values from
+    ``make(dtype, shape, seed)``.  ``call(m, a, b)`` runs the namesake of
+    the module ``m`` on two inputs; ``oracle(x, y)`` computes it with scipy
+    or numpy on their float64 (complex128) values, or is None.  The
+    reference's outcome is computed once per (entry, dtype) and shared by
+    the routes.  The entries of ``double`` compute in double precision
+    whatever the data (the hp transforms)."""
+
+    def __init__(self, entries, make, double=()):
+        self.entries, self.make, self.double = entries, make, double
+        self._ref = {}
+
+    def inputs(self, dtype, kind):
+        """((reference a, b), (port a, b)) of ``kind``."""
+        shape, dims, coords = _SWEEP_KINDS[kind]
+        a = pair(self.make(dtype, shape, 1), dims, coords=coords, name="a",
+                 attrs={"units": "K"})
+        b = pair(self.make(dtype, shape, 2), dims, coords=coords, name="b")
+        return (a[0], b[0]), (a[1], b[1])
+
+    def reference(self, entry, dtype):
+        key = entry, dtype
+        if key not in self._ref:
+            kind, call, _ = self.entries[entry]
+            (ra, rb), _ = self.inputs(dtype, kind)
+            self._ref[key] = _outcome(lambda: call(xrft_tpu, ra, rb))
+        return self._ref[key]
+
+    def port(self, entry, dtype, impl, cast=None):
+        """The port's outcome on the data of ``dtype``, cast to the dtype
+        ``cast`` (or as they are)."""
+        kind, call, _ = self.entries[entry]
+        _, (pa, pb) = self.inputs(dtype, kind)
+        if cast is not None:
+            pa, pb = (p.copy(data=p.data.to(cast)) for p in (pa, pb))
+        with fft_impl(impl):
+            return _outcome(lambda: call(xt, pa, pb))
+
+    def _assert_float16_bits(self, entry, dtype, impl, outcome):
+        """A float16 call's ``outcome`` is the float32 call's on the same
+        values, bit for bit (or the same error): the promotion is its first
+        operation."""
+        if dtype == "float16":
+            _assert_same_outcome(outcome, self.port(entry, dtype, impl,
+                                                    torch.float32))
+
+    def assert_parity(self, entry, dtype, impl):
+        """Both packages return and agree (:func:`assert_same`; the port's
+        dtype is the reference's, or its single-precision counterpart for
+        float32, float16 and complex64 data), or both raise the same
+        exception type and message."""
+        want, want_err = self.reference(entry, dtype)
+        outcome = got, got_err = self.port(entry, dtype, impl)
+        if want_err is not None:
+            _assert_same_error(got_err, want_err)
+        else:
+            if got_err is not None:
+                raise got_err
+            rd = np.asarray(want.values).dtype
+            expect = SINGLE_OF.get(rd, rd) if dtype in _SINGLE_INPUTS \
+                and entry not in self.double else rd
+            assert got.values.dtype == expect, (got.values.dtype, expect)
+            if rd.kind in "iub":       # an exact result: equal, and labels
+                npt.assert_array_equal(got.values, np.asarray(want.values))
+                got, want = got.copy(data=torch.zeros(got.shape)), \
+                    want.copy(data=np.zeros(want.shape))
+            assert_same(got, want, TOL.get(expect, 0.0))
+        self._assert_float16_bits(entry, dtype, impl, outcome)
+
+    def assert_oracle(self, entry, dtype, impl):
+        """The port against scipy or numpy on the float64 values (1e-12 of
+        max for a double-precision result, 2e-6 for a single one), in
+        float64/complex128 for integer, bool and double data (and the
+        entries of ``double``) and float32/complex64 otherwise; labels as
+        the reference's where it returns."""
+        kind, _, oracle = self.entries[entry]
+        (ra, rb), _ = self.inputs(dtype, kind)
+        x, y = (np.asarray(r.values) for r in (ra, rb))
+        x, y = (v.astype(np.complex128 if v.dtype.kind == "c"
+                         else np.float64) for v in (x, y))
+        truth = np.asarray(oracle(x, y))
+        outcome = got, got_err = self.port(entry, dtype, impl)
+        if got_err is not None:
+            raise got_err
+        double = dtype in ("float64", "complex128") or \
+            np.dtype(dtype).kind in "iub" or entry in self.double
+        expect = np.dtype(truth.dtype if double
+                          else SINGLE_OF.get(truth.dtype, truth.dtype))
+        assert got.values.dtype == expect, (got.values.dtype, expect)
+        want, want_err = self.reference(entry, dtype)
+        if want_err is None:
+            assert_same(got, want.copy(data=truth), TOL[expect])
+        else:
+            g = got.values
+            assert g.shape == truth.shape
+            assert np.abs(g - truth).max() <= \
+                TOL[expect] * np.abs(truth).max()
+        self._assert_float16_bits(entry, dtype, impl, outcome)
+
+    def assert_complex32(self, entry, impl):
+        """complex32 data (the complex64 values rounded to half precision)
+        are the same values in complex64 in the port: the same result bit
+        for bit, or the same error."""
+        kind, call, _ = self.entries[entry]
+        _, (pa, pb) = self.inputs("complex64", kind)
+        with warnings.catch_warnings():     # "ComplexHalf ... experimental"
+            warnings.simplefilter("ignore")
+            half = [p.copy(data=p.data.to(torch.complex32))
+                    for p in (pa, pb)]
+        wide = [p.copy(data=p.data.to(torch.complex64)) for p in half]
+        with fft_impl(impl):
+            _assert_same_outcome(_outcome(lambda: call(xt, *half)),
+                                 _outcome(lambda: call(xt, *wide)))
+
+
+def namesake_cases(entries, defects):
+    """(entry, dtype) parameters over :data:`SWEEP_DTYPES`; a case of
+    ``defects`` (a list of (xfail mark, {entry: dtypes})) carries its strict
+    xfail mark.  Returns (every case, the defect cases)."""
+    marks = {}
+    for mark, where in defects:
+        for entry, dtypes in where.items():
+            for d in dtypes:
+                marks[entry, d] = mark
+    cases = [pytest.param(e, d, marks=marks[e, d]) if (e, d) in marks
+             else (e, d) for e in entries for d in SWEEP_DTYPES]
+    return cases, sorted(marks)
+
+
+def reference_defect(where: str, what: str):
+    """The strict xfail of a parity case in which ``xrft_tpu`` itself is
+    wrong (at ``where``) and the port is held to scipy or numpy instead."""
+    return pytest.mark.xfail(strict=True, reason=(
+        f"a defect of the reference ({where}): {what}; the port is held "
+        "to scipy/numpy on the float64 values by test_defect_held_to_oracle"))

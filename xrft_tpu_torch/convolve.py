@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from . import coords as ce
 from .config import config, engine_impl, full_fp32
+from .dtypes import promote
 from .labeled import Coord, LabeledArray
 from .ops import fft_core
 
@@ -109,6 +110,14 @@ def _fft_convolve(u, v, axes, sizes1, sizes2):
     return fft_core.ifftn(U * V, axes)
 
 
+def _single(*das):
+    """The operands with data of less than single precision (float16,
+    complex32) in float32 or complex64, before any operation."""
+    return [d.copy(data=promote(d.data, "numpy"))
+            if d.data.is_floating_point() or d.data.is_complex() else d
+            for d in das]
+
+
 def _reversed_kernel(v, axes):
     """The correlation's second operand: reversed along ``axes`` and
     conjugated (a physical conjugate: the kernels read raw memory)."""
@@ -117,6 +126,7 @@ def _reversed_kernel(v, axes):
 
 
 def _conv_like(da, db, dims, mode, engine, caller, reverse):
+    da, db = _single(da, db)
     dims = _norm_dims(da, db, dims, caller)
     axes = [da.dims.index(d) for d in dims]
     sizes1 = [da.sizes[d] for d in dims]
@@ -210,6 +220,7 @@ def oaconvolve(da, db, dims=None, mode="full", engine=None):
     add.  Real operands take ``rfftn``/``irfftn`` (under ``"matmul"`` the
     stacked rfft and the pair engine's packed irfft).  Falls back to :func:`fftconvolve`'s
     single transform when the kernel is not much shorter than the signal."""
+    da, db = _single(da, db)
     dims_l = _norm_dims(da, db, dims, "oaconvolve")
     if len(dims_l) != 1:
         raise ValueError(
@@ -310,7 +321,16 @@ def _direct_conv(da, db, dims, mode, caller, reverse):
     """The mode-cropped linear convolution/correlation on the direct
     route (cross-correlation semantics: the kernel is flipped for
     convolution, conjugated for correlation).  The caller guarantees
-    :func:`_direct_eligible`."""
+    :func:`_direct_eligible`.  Integer and bool operands convolve in
+    float64 (cuDNN has no integer convolution), exact while the sums stay
+    below 2**53, and return in their dtype as numpy's direct convolution
+    does: integers wrapped, bool as "any product"."""
+    da, db = _single(da, db)
+    exact = None
+    if not any(d.data.is_floating_point() or d.data.is_complex()
+               for d in (da, db)):
+        exact = torch.result_type(da.data, db.data)
+        da, db = (d.copy(data=d.data.double()) for d in (da, db))
     axes = [da.dims.index(d) for d in dims]
     sizes1 = [da.sizes[d] for d in dims]
     sizes2 = [db.sizes[d] for d in dims]
@@ -358,6 +378,8 @@ def _direct_conv(da, db, dims, mode, caller, reverse):
             im = [conv1(u.real, vi)] if vi is not None else []
             im += [conv1(ui, v.real)] if ui is not None else []
             y = torch.complex(y, sum(im))
+    if exact is not None:
+        y = y != 0 if exact == torch.bool else y.round().long().to(exact)
 
     coords = _conv_coords(da, db, dims, sizes2, starts, reverse)
     return LabeledArray(y, dims=list(da.dims), coords=coords,

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from . import coords as ce
 from .config import engine_impl
+from .dtypes import float_dtype
 from .labeled import Coord, LabeledArray
 from .ops import fft_core
 from .spectra import _norm_1d_dim
@@ -51,16 +52,17 @@ def _cconst(vals_c128: np.ndarray, like: torch.Tensor, ax: int,
 
 
 def _real_dtype(x: torch.Tensor) -> torch.dtype:
-    """The real dtype a transform of ``x`` computes in: complex64 and
-    float32 give float32, integers float64."""
-    if x.is_complex():
-        return x.real.dtype
-    return x.dtype if x.dtype in _COMPLEX else torch.float64
+    """The real dtype a transform of ``x`` computes in: float64 for double
+    and integer data, float32 for single precision and less (float16 and
+    complex32 included)."""
+    return float_dtype(x.dtype, "float64").to_real()
 
 
 def _czt_data(x, ax, n, m, w: complex, a: complex):
     """Bluestein CZT of the tensor ``x`` along ``ax`` (host chirps; one
     fft/ifft pair at the next power of two)."""
+    rdt = _real_dtype(x)
+    x = x.to(_COMPLEX[rdt] if x.is_complex() else rdt)
     k2 = np.arange(max(n, m), dtype=np.float64) ** 2 / 2.0
     logw_mag = np.log(np.abs(w))
     argw = np.angle(w)
@@ -93,7 +95,6 @@ def _czt_data(x, ax, n, m, w: complex, a: complex):
         V = V / sV
         c3 = c3 * comp
 
-    rdt = _real_dtype(x)
     # Off-circle spirals need a relative dynamic range exp(E) with
     # E = max(n,m)^2/2 * |log|w|| + n * |log|a||: the answer lives in
     # convolution outputs exp(-E) below the intermediate FFT's rounding

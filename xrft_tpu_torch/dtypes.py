@@ -13,8 +13,12 @@ which the port repeats where the JAX package applies them:
                   integers of up to 16 bits give float32, wider integers
                   float64, and float16 gives float32.
 
-``"float64"`` sends every non-float dtype to float64 (the filter family,
-which computes integer data in float64 as scipy does).
+``"float64"`` sends every non-float dtype to float64 (the filter and
+trigonometric families, which compute integer data in float64 as scipy
+does) and float16 and bfloat16 to float32.
+
+Under every rule complex32 data give complex64: the port's single-precision
+rule computes data of less than single precision in single precision.
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ def float_dtype(dtype: torch.dtype, rule: str) -> torch.dtype:
     """The floating (or complex) dtype that ``rule`` gives data of
     ``dtype``."""
     if dtype.is_complex:
-        return dtype
+        return torch.complex64 if dtype.itemsize < 8 else dtype
     if dtype.is_floating_point:
-        return torch.float32 if rule == "numpy" and dtype.itemsize < 4 \
-            else dtype
+        return torch.float32 if rule in ("numpy", "float64") \
+            and dtype.itemsize < 4 else dtype
     if rule == "float64":
         return torch.float64
     widest_single = 2 if rule == "numpy" else 4

@@ -118,8 +118,8 @@ def _fht_like(da, dln, mu, offset, bias, dim, engine, inverse, caller):
     dln = float(dln)
     mu, offset, bias = float(mu), float(offset), float(bias)
 
-    x = da.data
-    rdt = _real_dtype(x)
+    rdt = _real_dtype(da.data)
+    x = da.data.to(rdt)
     j_c = (n - 1) / 2.0
     j = np.arange(n, dtype=np.float64)
     if bias != 0.0:

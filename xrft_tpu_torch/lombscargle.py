@@ -29,6 +29,7 @@ import torch
 
 from . import coords as ce
 from .config import full_fp32
+from .dtypes import float_dtype
 from .labeled import Coord, LabeledArray
 from .spectra import _norm_1d_dim
 from .utils import along
@@ -165,7 +166,7 @@ def lombscargle(da, freqs, dim=None, normalize=False, weights=None,
             "'normalize'), or 'amplitude'.")
 
     dev = da.data.device
-    rdt = da.data.dtype if da.data.is_floating_point() else torch.float64
+    rdt = float_dtype(da.data.dtype, "float64")
     w = w / w.sum()
     f64 = dict(dtype=torch.float64, device=dev)
     M, moments = _basis(torch.as_tensor(t, **f64),

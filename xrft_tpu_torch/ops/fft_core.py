@@ -26,10 +26,11 @@ scaling rule downstream is implementation-independent:
 
 Every transform takes its input's dtype as the JAX package's transforms
 (``lax.fft``) do, whatever the route: a complex transform of integer, bool
-or float16 data gives complex64 (complex128 for 64-bit integers); a real
-transform promotes integer and bool data to float32 or float64 and raises
-for float16 and complex data, with JAX's messages.  float32, float64 and
-complex data reach the route as they are.
+or float16 data gives complex64 (complex128 for 64-bit integers), and
+complex32 data are transformed in complex64; a real transform promotes
+integer and bool data to float32 or float64 and raises for float16 and
+complex data, with JAX's messages.  float32, float64, complex64 and
+complex128 data reach the route as they are.
 
 ``pre_shift_axes`` ifftshift the input and ``post_shift_axes`` shift the
 output (``post_kind`` "fftshift" or, for the inverses, "ifftshift"), as in
@@ -81,13 +82,15 @@ def _input(x: torch.Tensor, real: bool) -> torch.Tensor:
     K5a); for a real transform (``real``), JAX's float promotion of the
     rest, which must give float32 or float64; for a complex one, integer
     and bool data in JAX's float (whose transform has JAX's complex dtype)
-    and float16 in complex64."""
-    if x.dtype in (torch.float32, torch.float64) or (x.is_complex()
-                                                     and not real):
+    and float16 and complex32 in complex64: no complex32 tensor reaches a
+    route (cuFFT takes half precision only at powers of two, MKL, K2 and the
+    matmul engines not at all)."""
+    if x.dtype in (torch.float32, torch.float64, torch.complex64,
+                   torch.complex128) and not (real and x.is_complex()):
         return x
     if not real:
         return x.to(complex_dtype(x.dtype)) if x.is_floating_point() \
-            else promote(x)
+            or x.is_complex() else promote(x)
     if x.is_complex():
         raise ValueError("only real valued inputs supported for rfft")
     x = promote(x)

@@ -18,6 +18,7 @@ import numpy as np
 import scipy.signal as sps
 import torch
 
+from ..dtypes import float_dtype
 from ..labeled import LabeledArray
 
 __all__ = ["apply_window", "WINDOW_TYPES"]
@@ -35,15 +36,11 @@ WINDOW_TYPES = [
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
     """The real dtype that multiplies data of ``dtype`` without promoting
     it past single precision: the dtype itself for float32 and float64, its
-    component dtype for complex, float32 for float16 and bfloat16 (which
-    ``xrft_tpu`` windows in float64, and a transform would reject), and
-    float64 for integer and bool data, as ``xrft_tpu``'s float64 window
-    promotes them."""
-    if dtype.is_complex:
-        return dtype.to_real()
-    if dtype.is_floating_point:
-        return torch.float32 if dtype.itemsize < 4 else dtype
-    return torch.float64
+    component dtype for complex64 and complex128, float32 for float16,
+    bfloat16 and complex32 (which ``xrft_tpu`` windows in float64, and a
+    transform would reject), and float64 for integer and bool data, as
+    ``xrft_tpu``'s float64 window promotes them."""
+    return float_dtype(dtype, "float64").to_real()
 
 
 def build_window(da: LabeledArray, dims, window_type="hann", dtype=None,

@@ -20,7 +20,9 @@ matmul engine, by ``config.fft_impl``):
   trig matrix (``torch.matmul`` at full float32 grade, ``config.full_fp32``).
 
 Permutations, twiddles and norm factors are host numpy, turned into tensors
-of the data's real dtype on its device.  Like :func:`scipy.fft.dct` the
+of the data's real dtype on its device.  Integer and bool data compute in
+float64 (as in scipy), float16 data in float32 from the first operation on,
+so no constant is ever rounded to float16.  Like :func:`scipy.fft.dct` the
 transforms are index-based: dims/coords pass through and no spacing is
 checked.
 """
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from .config import engine_impl, full_fp32
+from .dtypes import promote
 from .ops import fft_core
 from .spectra import _norm_1d_dim, _norm_dim_list
 from .utils import along
@@ -181,9 +184,8 @@ def _trig(kind, da, dim, type, norm, engine, caller):
     ax = da.dims.index(dim)
     n = da.sizes[dim]
     _validate(kind, type, norm, n)
-    x = da.data
-    if not x.is_floating_point():
-        x = x.to(torch.float64)
+    # integer and bool data in float64, as scipy; float16 in float32
+    x = promote(da.data, "float64")
     inp, out = _norm_factors(kind, type, norm, n)
     if inp is not None:
         x = _scale_along(x, ax, inp)
