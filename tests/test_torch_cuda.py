@@ -6,6 +6,8 @@ torch is installed, without the JAX-configuring conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda -q tests/test_torch_cuda.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -678,3 +680,63 @@ def test_detrend_far_from_zero_mean_on_the_card(cuda, field, kind):
     ref = detrend(LabeledArray(x.double(), dims), ["y", "x"], kind).data
     assert got.dtype == torch.float32
     assert _rel(got, ref) <= 2e-6
+
+
+@pytest.mark.parametrize("path,syncs,h2d", [
+    ("psd", 4, 2 * 256 * 8 + 2 * 256 * 4),     # float64 coords, float32 windows
+    ("psd-hp", 4, 4 * 256 * 8),
+    ("irfft2", 0, 0),
+])
+def test_host_syncs_match_the_profilers_stream_syncs(cuda, tmp_path, path,
+                                                     syncs, h2d):
+    """One call of each benchmark path on a small stack: the program's own
+    count of its blocking copies onto the card (``telemetry``'s
+    ``host_syncs``: the detrend's coordinate vector of each fitted axis and
+    each axis's window) equals the host's ``cudaStreamSynchronize`` calls
+    in a profiler trace of the call; a copy that bypassed ``to_device``
+    would show in the trace alone."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from xrft_tpu_torch import telemetry
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn((4, 256, 256), generator=g, device=cuda)
+    coords = {"time": np.arange(4.0), "y": 0.5 * np.arange(256),
+              "x": 0.5 * np.arange(256)}
+    kw = dict(dim=["y", "x"], window="hann", detrend="linear")
+    if path == "irfft2":
+        h = torch.fft.rfft2(x)
+        coords = {"time": coords["time"],
+                  "freq_y": np.fft.fftfreq(256, 0.5),
+                  "freq_x": np.fft.rfftfreq(256, 0.5)}
+        da = LabeledArray(h, ("time", "freq_y", "freq_x"), coords)
+        kw = dict(dim=["freq_y", "freq_x"], real_dim="freq_x", shift=False,
+                  lag=None, true_phase=False, true_amplitude=False)
+        call = ifft
+    else:
+        da = LabeledArray(x, ("time", "y", "x"), coords)
+        if path == "psd-hp":
+            kw["engine"] = "hp"
+        call = power_spectrum
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        call(da, **kw)                      # builds K1, makes cuFFT's plans
+        torch.cuda.synchronize()
+        telemetry.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call(da, **kw)
+            torch.cuda.synchronize()        # cudaDeviceSynchronize
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    stream_syncs = [e for e in events
+                    if e.get("name") == "cudaStreamSynchronize"]
+    snap = telemetry.snapshot()
+    assert snap["calls"] == 1
+    assert snap["host_syncs"] == syncs == len(stream_syncs)
+    assert snap["h2d_bytes"] == h2d
+    assert snap["cufft_plans"] == 0          # made by the first call
+    assert snap["launches"]["K1"] == (path == "psd")

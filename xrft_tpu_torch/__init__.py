@@ -31,6 +31,7 @@ Host data (numpy) given to the package land on the CUDA device unless the
 caller asks for the CPU (``device="cpu"``, or a CPU tensor).
 """
 
+from . import telemetry
 from .analytic import envelope, hilbert, hilbert2
 from .config import complex_mode, config, fft_engine, set_fft_engine
 from .convolve import (choose_conv_method, convolve, correlate, fftconvolve,
@@ -121,7 +122,9 @@ __all__ = [
 ]
 
 # xarray at the API boundary: the public array functions take and return
-# xarray.DataArray when given one, the names xrft_tpu/__init__.py:49-63 wraps
+# xarray.DataArray when given one, the names xrft_tpu/__init__.py:49-63 wraps;
+# each outermost call of them is one call of telemetry (the package's own
+# calls take the modules' functions, and neither wrapper runs there)
 for _name in (
     "fft", "ifft", "dft", "idft", "power_spectrum", "cross_spectrum",
     "cross_phase", "coherence", "spectrogram", "welch", "csd",
@@ -135,7 +138,7 @@ for _name in (
     "isotropic_power_spectrum", "isotropic_cross_spectrum", "pad", "unpad",
     "detrend", "fft64", "ifft64",
 ):
-    globals()[_name] = xr_boundary(globals()[_name])
+    globals()[_name] = telemetry.entry(xr_boundary(globals()[_name]))
 del _name
 
 from .xarray_compat import register_accessor as _register_accessor  # noqa: E402

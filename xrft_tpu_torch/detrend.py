@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import telemetry
 from .dtypes import promote
 from .labeled import LabeledArray
 from .ops import shards
@@ -114,7 +115,7 @@ def _detrended(x: torch.Tensor, axes: tuple[int, ...],
         shape = [1] * x.ndim
         shape[a] = hi - lo
         c64 = np.arange(n) - (n - 1) / 2.0
-        c = torch.as_tensor(c64[lo:hi].reshape(shape), device=xl.device)
+        c = telemetry.to_device(c64[lo:hi].reshape(shape), device=xl.device)
         coords.append((c, float(np.sum(c64 ** 2)) * (n_el / n)))
         moments.append(torch.sum(m * c, dim=a, keepdim=True))
     if total is None:

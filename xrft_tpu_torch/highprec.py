@@ -30,6 +30,7 @@ import scipy.signal as sps
 import torch
 
 from . import coords as ce
+from . import telemetry
 from .labeled import LabeledArray
 from .ops import shards
 from .spectra import _doubling_vector
@@ -48,7 +49,8 @@ def _promote(da: LabeledArray, complex_out=False) -> LabeledArray:
     x = da.data
     dtype = torch.complex128 if complex_out or x.is_complex() \
         else torch.float64
-    return da.copy(data=x.to(dtype))
+    with telemetry.span("prologue"):
+        return da.copy(data=x.to(dtype))
 
 
 def fft_hp(da: LabeledArray, spacing_tol: float = 1e-3, dim=None,
@@ -177,8 +179,8 @@ def _one_sided(x, daft, da, real_dim, updated, kwargs):
     if kwargs.get("chunks_to_segments"):
         n = (da.attrs.get("_chunks") or {}).get(real_dim, n)
     lo, hi = shards.local_range(x, ax)
-    f = torch.as_tensor(_doubling_vector(n)[lo:hi],
-                        dtype=torch.float64, device=x.device)
+    f = telemetry.to_device(_doubling_vector(n)[lo:hi],
+                            dtype=torch.float64, device=x.device)
     return shards.like(x, shards.local(x) * f.reshape(shape))
 
 
@@ -196,16 +198,19 @@ def power_spectrum_hp(da: LabeledArray, dim=None,
     updated = [d for d in daft.dims
                if d not in da.dims and "segment" not in d]
 
-    ps = daft.data.real ** 2 + daft.data.imag ** 2
-    if real_dim is not None:
-        ps = _one_sided(ps, daft, da, real_dim, updated, kwargs)
-    scale = _hp_scale(da, dim, updated, daft.coords, scaling,
-                      window_correction, kwargs.get("window"))
-    if scale != 1.0:
-        ps = ps * scale
-    return LabeledArray(ps, dims=daft.dims,
-                        coords={c: v.copy() for c, v in daft.coords.items()},
-                        name=da.name)
+    with telemetry.span("epilogue"):
+        ps = daft.data.real ** 2 + daft.data.imag ** 2
+        if real_dim is not None:
+            ps = _one_sided(ps, daft, da, real_dim, updated, kwargs)
+        scale = _hp_scale(da, dim, updated, daft.coords, scaling,
+                          window_correction, kwargs.get("window"))
+        if scale != 1.0:
+            ps = ps * scale
+    with telemetry.span("coords"):
+        return LabeledArray(
+            ps, dims=daft.dims,
+            coords={c: v.copy() for c, v in daft.coords.items()},
+            name=da.name)
 
 
 def cross_spectrum_hp(da1: LabeledArray, da2: LabeledArray, dim=None,
@@ -225,14 +230,18 @@ def cross_spectrum_hp(da1: LabeledArray, da2: LabeledArray, dim=None,
     updated = [d for d in daft1.dims
                if d not in da1.dims and "segment" not in d]
 
-    cs = daft1.data * daft2.data.conj()
-    if real_dim is not None:
-        cs = _one_sided(cs, daft1, da1, real_dim, updated, kwargs)
-    scale = _hp_scale(da1, dim, updated, daft1.coords, scaling,
-                      window_correction, kwargs.get("window"), strict=False)
-    if scale != 1.0:
-        cs = cs * scale
+    with telemetry.span("epilogue"):
+        cs = daft1.data * daft2.data.conj()
+        if real_dim is not None:
+            cs = _one_sided(cs, daft1, da1, real_dim, updated, kwargs)
+        scale = _hp_scale(da1, dim, updated, daft1.coords, scaling,
+                          window_correction, kwargs.get("window"),
+                          strict=False)
+        if scale != 1.0:
+            cs = cs * scale
     name = f"{da1.name}_{da2.name}" if da1.name and da2.name else None
-    return LabeledArray(cs, dims=daft1.dims,
-                        coords={c: v.copy() for c, v in daft1.coords.items()},
-                        name=name)
+    with telemetry.span("coords"):
+        return LabeledArray(
+            cs, dims=daft1.dims,
+            coords={c: v.copy() for c, v in daft1.coords.items()},
+            name=name)

@@ -23,6 +23,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from . import telemetry
 from .config import BINNED_SUM_IMPLS, config
 from .labeled import Coord, LabeledArray
 from .ops import shards
@@ -182,7 +183,8 @@ def isotropic_power_spectrum(
     )
 
     fftdim = ["freq_" + d for d in dim]
-    return isotropize(ps, fftdim, nfactor=nfactor, truncate=truncate)
+    with telemetry.span("binning"):
+        return isotropize(ps, fftdim, nfactor=nfactor, truncate=truncate)
 
 
 def isotropic_cross_spectrum(
@@ -227,8 +229,9 @@ def isotropic_cross_spectrum(
     )
 
     fftdim = ["freq_" + d for d in dim]
-    return isotropize(cs, fftdim, nfactor=nfactor, truncate=truncate,
-                      complx=True)
+    with telemetry.span("binning"):
+        return isotropize(cs, fftdim, nfactor=nfactor, truncate=truncate,
+                          complx=True)
 
 
 def fit_loglog(x, y):

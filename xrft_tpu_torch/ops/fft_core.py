@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..config import FFT_IMPLS, config
 from ..dtypes import complex_dtype, promote
 from .dft64 import fftn64
@@ -124,7 +125,7 @@ def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
-        out = torch.fft.fftn(x, dim=axes)
+        out = telemetry.cufft(torch.fft.fftn, x, dim=axes)
     else:
         out = _kernel_fftn(x, axes)
     return _post(out, post_shift_axes, "fftshift")
@@ -141,7 +142,7 @@ def ifftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
-        out = torch.fft.ifftn(x, dim=axes)
+        out = telemetry.cufft(torch.fft.ifftn, x, dim=axes)
     else:
         out = _kernel_fftn(x, axes, inverse=True)
     return _post(out, post_shift_axes, post_kind)
@@ -158,7 +159,7 @@ def rfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
-        out = torch.fft.rfftn(x, dim=axes)
+        out = telemetry.cufft(torch.fft.rfftn, x, dim=axes)
     else:
         last = axes[-1]
         out = _kernel_fftn(x, [last]).narrow(last, 0, x.shape[last] // 2 + 1)
@@ -185,7 +186,7 @@ def irfftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=(),
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
-        out = torch.fft.irfftn(x, dim=axes)
+        out = telemetry.cufft(torch.fft.irfftn, x, dim=axes)
     else:
         last = axes[-1]
         m = x.shape[last]

@@ -20,6 +20,8 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import telemetry
+
 __all__ = ["mirror_psd", "mirror_psd_plain"]
 
 _ENTRY = {torch.complex64: "mirror_psd_f32", torch.complex128: "mirror_psd_f64"}
@@ -50,9 +52,10 @@ def mirror_psd_plain(F: torch.Tensor, n_full: int, shift: bool,
         pos = np.nonzero(keep)[0]
         if pos.size == 0:
             continue
-        src = p.index_select(-2, torch.as_tensor(rows, device=p.device))
-        src = src.index_select(-1, torch.as_tensor(col[pos], device=p.device))
-        out.index_copy_(-1, torch.as_tensor(pos, device=p.device), src)
+        src = p.index_select(-2, telemetry.to_device(rows, device=p.device))
+        src = src.index_select(
+            -1, telemetry.to_device(col[pos], device=p.device))
+        out.index_copy_(-1, telemetry.to_device(pos, device=p.device), src)
     return out
 
 

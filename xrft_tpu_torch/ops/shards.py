@@ -37,6 +37,8 @@ try:
 except ImportError:  # a torch built without torch.distributed
     dist = DTensor = Replicate = Shard = None
 
+from .. import telemetry
+
 __all__ = ["is_sharded", "local", "mesh_shape", "axis_map", "placements",
            "wrap", "like", "chunk_range", "local_range", "take", "flip", "roll",
            "fftshift", "ifftshift", "all_sum"]
@@ -161,7 +163,7 @@ def take(x, axis: int, index) -> torch.Tensor:
     dev = xl.device
     m = axis_map(x).get(axis)
     if m is None:
-        out = xl.index_select(axis, torch.as_tensor(index, device=dev))
+        out = xl.index_select(axis, telemetry.to_device(index, device=dev))
         return like(x, out)
     mesh = x.device_mesh
     group, parts, me = _group(mesh, m)
@@ -178,7 +180,7 @@ def take(x, axis: int, index) -> torch.Tensor:
     a, b = chunk_range(n_out, parts, me)
     mine = owner[a:b]
     out_splits = [int(np.count_nonzero(mine == q)) for q in range(parts)]
-    send = xl.index_select(axis, torch.as_tensor(
+    send = xl.index_select(axis, telemetry.to_device(
         np.concatenate(send_rows), device=dev)).movedim(axis, 0).contiguous()
     recv = torch.empty((b - a,) + tuple(send.shape[1:]), dtype=send.dtype,
                        device=dev)
@@ -186,7 +188,7 @@ def take(x, axis: int, index) -> torch.Tensor:
                            in_splits, group=group)
     # rows arrive grouped by sender, each group in output order
     arrival = np.argsort(mine, kind="stable")
-    place = torch.as_tensor(np.argsort(arrival), device=dev)
+    place = telemetry.to_device(np.argsort(arrival), device=dev)
     block = recv.index_select(0, place).movedim(0, axis)
     amap = axis_map(x)
     shape = list(x.shape)

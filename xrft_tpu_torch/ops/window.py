@@ -18,6 +18,7 @@ import numpy as np
 import scipy.signal as sps
 import torch
 
+from .. import telemetry
 from ..dtypes import float_dtype
 from ..labeled import LabeledArray
 
@@ -74,7 +75,7 @@ def build_window(da: LabeledArray, dims, window_type="hann", dtype=None,
         w = np.asarray(win_func(da.sizes[d], sym=False), dtype=np.float64)
         coords = {d: da.coords[d]} if d in da.coords else None
         windows.append(LabeledArray(
-            torch.as_tensor(w, dtype=dtype, device=device), dims=(d,),
+            telemetry.to_device(w, dtype=dtype, device=device), dims=(d,),
             coords=coords))
     # outer product in reversed order, as the reference's
     # reduce(operator.mul, windows[::-1])

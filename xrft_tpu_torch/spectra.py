@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import coords as ce
+from . import telemetry
 from .config import MIRROR_IMPLS, config
 from .labeled import Coord, LabeledArray
 from .ops import mirror, shards
@@ -86,8 +87,8 @@ def _psd_real_dim_scaling(da, ps, real_dim, updated_dims):
     the segment length's (the JAX package's deliberate divergence from
     xrft, ``xrft_tpu/spectra.py:69-82``)."""
     real = next(d for d in updated_dims if d.endswith(real_dim))
-    f = torch.as_tensor(_doubling_vector(da.sizes[real_dim]),
-                        dtype=ps.dtype, device=ps.device)
+    f = telemetry.to_device(_doubling_vector(da.sizes[real_dim]),
+                            dtype=ps.dtype, device=ps.device)
     return LabeledArray(f, dims=(real,), coords={real: ps.coords[real]})
 
 
@@ -226,7 +227,7 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
             piece = torch.conj_physical(piece)
         # the piece has the block layout of full: one local copy
         shards.local(full).index_copy_(
-            ax_half, torch.as_tensor(pos, device=piece.device), piece)
+            ax_half, telemetry.to_device(pos, device=piece.device), piece)
 
     return LabeledArray(full, dims=daft.dims,
                         coords=_two_sided_coords(daft, da, dims, half_dim,
@@ -237,20 +238,22 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
 def _two_sided_coords(daft, da, dims, half_dim, kwargs, shift, n_full):
     """Coordinates of the full two-sided grid rebuilt from a one-sided
     `daft` (shared by the kernel and plain mirror routes)."""
-    fd = {d: ce.freq_dim_name(d, kwargs.get("prefix", "freq_")) for d in dims}
-    delta = [
-        ce.get_coordinate_spacing(_dim_coord(da, d),
-                                  kwargs.get("spacing_tol", 1e-3))
-        for d in dims
-    ]
-    sizes = [n_full if d == half_dim else da.sizes[d] for d in dims]
-    grids = ce.freq_grids(sizes, delta, False, shift)
-    out_coords = {c: v.copy() for c, v in daft.coords.items()
-                  if c not in fd.values()}
-    for d, g in zip(dims, grids):
-        out_coords[fd[d]] = Coord((fd[d],), g, {"spacing": g[1] - g[0]},
-                                  fd[d])
-    return out_coords
+    with telemetry.span("coords"):
+        fd = {d: ce.freq_dim_name(d, kwargs.get("prefix", "freq_"))
+              for d in dims}
+        delta = [
+            ce.get_coordinate_spacing(_dim_coord(da, d),
+                                      kwargs.get("spacing_tol", 1e-3))
+            for d in dims
+        ]
+        sizes = [n_full if d == half_dim else da.sizes[d] for d in dims]
+        grids = ce.freq_grids(sizes, delta, False, shift)
+        out_coords = {c: v.copy() for c, v in daft.coords.items()
+                      if c not in fd.values()}
+        for d, g in zip(dims, grids):
+            out_coords[fd[d]] = Coord((fd[d],), g, {"spacing": g[1] - g[0]},
+                                      fd[d])
+        return out_coords
 
 
 def _mirror_kernel_applicable(da, dims, half_dim) -> bool:
@@ -283,10 +286,7 @@ def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):
     shift = kwargs.pop("shift", True)
     n_full = da.sizes[half_dim]
     kwargs["true_amplitude"] = False
-    amp2 = float(np.prod([
-        ce.get_coordinate_spacing(_dim_coord(da, d),
-                                  kwargs.get("spacing_tol", 1e-3))
-        for d in dims])) ** 2
+    amp2 = _amp2(da, dims, kwargs)
     scale = amp2 if prescale is None else amp2 * prescale
 
     planned = _planned_sharding(da, dims, half_dim, kwargs.get("engine"))
@@ -296,8 +296,9 @@ def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):
         # itself; sharded data run it on each rank's block, whose two
         # transform axes are resident
         daft = fft(da, dim=dims, real_dim=half_dim, shift=False, **kwargs)
-        full = shards.like(daft.data, mirror.mirror_psd(
-            shards.local(daft.data).contiguous(), n_full, shift, scale))
+        with telemetry.span("epilogue"):
+            full = shards.like(daft.data, mirror.mirror_psd(
+                shards.local(daft.data).contiguous(), n_full, shift, scale))
         return LabeledArray(
             full, dims=daft.dims,
             coords=_two_sided_coords(daft, da, dims, half_dim, kwargs,
@@ -306,8 +307,19 @@ def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):
 
     daft = fft(da, dim=dims, real_dim=half_dim, shift=shift,
                _shift_nonreal=True, **kwargs)
-    ps_half = _abs2(daft.data) * scale
-    return _hermitian_expand(ps_half, daft, da, dims, half_dim, kwargs, shift)
+    with telemetry.span("epilogue"):
+        ps_half = _abs2(daft.data) * scale
+        return _hermitian_expand(ps_half, daft, da, dims, half_dim, kwargs,
+                                 shift)
+
+
+def _amp2(da, dims, kwargs) -> float:
+    """true_amplitude's prod(dx)^2, folded into the |.|^2 pass."""
+    with telemetry.span("coords"):
+        return float(np.prod([
+            ce.get_coordinate_spacing(_dim_coord(da, d),
+                                      kwargs.get("spacing_tol", 1e-3))
+            for d in dims])) ** 2
 
 
 def _density_prescale(da, dim, scaling, window_correction, kwargs):
@@ -322,10 +334,11 @@ def _density_prescale(da, dim, scaling, window_correction, kwargs):
         pre = 1.0 / _window_correction_factor(da, dim, scaling,
                                               kwargs.get("window"))
     fs = 1.0
-    for d in _norm_dim_list(da, dim):
-        delta = ce.get_coordinate_spacing(
-            _dim_coord(da, d), kwargs.get("spacing_tol", 1e-3))
-        fs *= 1.0 / (da.sizes[d] * delta)
+    with telemetry.span("coords"):
+        for d in _norm_dim_list(da, dim):
+            delta = ce.get_coordinate_spacing(
+                _dim_coord(da, d), kwargs.get("spacing_tol", 1e-3))
+            fs *= 1.0 / (da.sizes[d] * delta)
     return pre * (fs if scaling == "density" else fs**2)
 
 
@@ -341,17 +354,15 @@ def _cross_spectrum_via_rfft(da1, da2, dim, half_dim, kwargs, prescale,
     dims = _norm_dim_list(da1, dim)
     shift = kwargs.pop("shift", True)
     kwargs["true_amplitude"] = False
-    amp2 = float(np.prod([
-        ce.get_coordinate_spacing(_dim_coord(da1, d),
-                                  kwargs.get("spacing_tol", 1e-3))
-        for d in dims])) ** 2
+    amp2 = _amp2(da1, dims, kwargs)
     daft1, daft2 = (fft(da, dim=dims, real_dim=half_dim, shift=shift,
                         _shift_nonreal=True, true_phase=true_phase, **kwargs)
                     for da in (da1, da2))
-    cs_half = daft1.data * daft2.data.conj()
-    cs_half = cs_half * (amp2 if prescale is None else amp2 * prescale)
-    out = _hermitian_expand(cs_half, daft1, da1, dims, half_dim, kwargs,
-                            shift, conj_mirror=True)
+    with telemetry.span("epilogue"):
+        cs_half = daft1.data * daft2.data.conj()
+        cs_half = cs_half * (amp2 if prescale is None else amp2 * prescale)
+        out = _hermitian_expand(cs_half, daft1, da1, dims, half_dim, kwargs,
+                                shift, conj_mirror=True)
     out.name = None
     return out
 
@@ -404,18 +415,19 @@ def power_spectrum(
     daft = fft(da, dim=dim, real_dim=real_dim, **kwargs)
     updated_dims = [d for d in daft.dims
                     if d not in da.dims and "segment" not in d]
-    ps = daft.copy(data=_abs2(daft.data))
-    ps.attrs = {}
+    with telemetry.span("epilogue"):
+        ps = daft.copy(data=_abs2(daft.data))
+        ps.attrs = {}
 
-    if real_dim is not None:
-        ps = ps * _psd_real_dim_scaling(da, ps, real_dim, updated_dims)
+        if real_dim is not None:
+            ps = ps * _psd_real_dim_scaling(da, ps, real_dim, updated_dims)
 
-    if scaling != "false_density":
-        if window_correction:
-            ps = ps / _window_correction_factor(
-                da, dim, scaling, kwargs.get("window")
-            )
-        ps = ps * _psd_scaling_factor(ps, updated_dims, scaling)
+        if scaling != "false_density":
+            if window_correction:
+                ps = ps / _window_correction_factor(
+                    da, dim, scaling, kwargs.get("window")
+                )
+            ps = ps * _psd_scaling_factor(ps, updated_dims, scaling)
 
     return ps
 
@@ -474,17 +486,18 @@ def cross_spectrum(
 
     updated_dims = [d for d in daft1.dims
                     if d not in da1.dims and "segment" not in d]
-    cs = daft1 * daft2.conj()
+    with telemetry.span("epilogue"):
+        cs = daft1 * daft2.conj()
 
-    if real_dim is not None:
-        cs = cs * _psd_real_dim_scaling(da1, cs, real_dim, updated_dims)
+        if real_dim is not None:
+            cs = cs * _psd_real_dim_scaling(da1, cs, real_dim, updated_dims)
 
-    if scaling != "false_density":
-        if window_correction:
-            cs = cs / _window_correction_factor(
-                da1, dim, scaling, kwargs.get("window")
-            )
-        cs = cs * _psd_scaling_factor(cs, updated_dims, scaling)
+        if scaling != "false_density":
+            if window_correction:
+                cs = cs / _window_correction_factor(
+                    da1, dim, scaling, kwargs.get("window")
+                )
+            cs = cs * _psd_scaling_factor(cs, updated_dims, scaling)
 
     return cs
 

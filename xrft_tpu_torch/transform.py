@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import coords as ce
+from . import telemetry
 from .config import ENGINE_NAMES, engine_impl
 from .dtypes import complex_dtype
 from .labeled import Coord, LabeledArray
@@ -98,16 +99,18 @@ def _stack_segments(da: LabeledArray, dim, suffix="_segment",
     ``plan`` takes a precomputed :func:`_segment_plan`.  Without overlap
     the segments are a reshape; with it, one strided view per dim and one
     copy."""
-    newdims, newshape, newcoords, plans = plan if plan is not None \
-        else _segment_plan(da, dim, suffix, overlap)
-    if all(hop == seglen for _, _, seglen, hop, _ in plans):
-        data = da.data.reshape(newshape)
-    else:
-        data = da.data
-        for ax, nseg, seglen, hop, _n in sorted(plans, reverse=True):
-            data = _slice_stack_axis(data, ax, nseg, seglen, hop)
-        data = data.contiguous()
-    return LabeledArray(data, dims=newdims, coords=newcoords, attrs=da.attrs)
+    with telemetry.span("segmenting"):
+        newdims, newshape, newcoords, plans = plan if plan is not None \
+            else _segment_plan(da, dim, suffix, overlap)
+        if all(hop == seglen for _, _, seglen, hop, _ in plans):
+            data = da.data.reshape(newshape)
+        else:
+            data = da.data
+            for ax, nseg, seglen, hop, _n in sorted(plans, reverse=True):
+                data = _slice_stack_axis(data, ax, nseg, seglen, hop)
+            data = data.contiguous()
+        return LabeledArray(data, dims=newdims, coords=newcoords,
+                            attrs=da.attrs)
 
 
 def _slice_stack_axis(data: torch.Tensor, ax, nseg, seglen, hop):
@@ -261,15 +264,15 @@ def fft(
                       segment_overlap=segment_overlap)
     _check_engine(engine)
 
-    if real_dim is not None:
-        if real_dim not in da.dims:
-            raise ValueError(
-                "The dimension along which real FT is taken must be one of "
-                "the existing dimensions."
-            )
-        dim = _move_to_end(dim, real_dim)
-
-    ce.check_valid_fft_coords(da, dim)
+    with telemetry.span("coords"):
+        if real_dim is not None:
+            if real_dim not in da.dims:
+                raise ValueError(
+                    "The dimension along which real FT is taken must be one "
+                    "of the existing dimensions."
+                )
+            dim = _move_to_end(dim, real_dim)
+        ce.check_valid_fft_coords(da, dim)
 
     if chunks_to_segments:
         da = _stack_segments(da, dim, overlap=segment_overlap)
@@ -287,25 +290,26 @@ def fft(
     axis_num = [da.get_axis_num(d) for d in dim]
     N = [da.shape[n] for n in axis_num]
 
-    _check_bad_transform_coords(da, dim)
-
-    delta_x = [
-        ce.get_coordinate_spacing(_dim_coord(da, d), spacing_tol) for d in dim
-    ]
-    lag_x = [ce.lag_coord(_dim_coord(da, d)) for d in dim]
+    with telemetry.span("coords"):
+        _check_bad_transform_coords(da, dim)
+        delta_x = [ce.get_coordinate_spacing(_dim_coord(da, d), spacing_tol)
+                   for d in dim]
+        lag_x = [ce.lag_coord(_dim_coord(da, d)) for d in dim]
 
     if detrend is not None:
         from .detrend import detrend as _detrend
 
         orig_dims = da.dims
-        da = _detrend(da, dim, detrend_type=detrend)
+        with telemetry.span("prologue"):
+            da = _detrend(da, dim, detrend_type=detrend)
         if tuple(da.dims) != tuple(orig_dims):
             da = da.transpose(*orig_dims)
 
     if window is not None:
         from .ops.window import apply_window
 
-        _, da = apply_window(da, dim, window_type=window)
+        with telemetry.span("prologue"):
+            _, da = apply_window(da, dim, window_type=window)
 
     data = da.data
     if true_phase:
@@ -322,45 +326,52 @@ def fft(
         post_axes = [a for a, d in zip(axis_num, dim) if d != real_dim]
     else:
         post_axes = axis_num if shift else ()
-    f = _run_core(data, axis_num, "fft" if real_dim is None else "rfft",
-                  engine, pre_shift_axes=axis_num if true_phase else (),
-                  post_shift_axes=post_axes)
+    with telemetry.span("fft"):
+        f = _run_core(data, axis_num, "fft" if real_dim is None else "rfft",
+                      engine, pre_shift_axes=axis_num if true_phase else (),
+                      post_shift_axes=post_axes)
 
-    k = ce.freq_grids(N, delta_x, real_dim is not None, shift)
-    if nonreal_shift:
-        k = [np.fft.fftshift(kk) if d != real_dim else kk
-             for kk, d in zip(k, dim)]
+    with telemetry.span("coords"):
+        k = ce.freq_grids(N, delta_x, real_dim is not None, shift)
+        if nonreal_shift:
+            k = [np.fft.fftshift(kk) if d != real_dim else kk
+                 for kk, d in zip(k, dim)]
 
-    # transform dims renamed freq_<d> with frequency coords; all other dims
-    # and coords carried through
-    swap = {d: ce.freq_dim_name(d, prefix) for d in dim}
-    out_dims = [swap.get(d, d) for d in da.dims]
-    out_coords = {cname: c.copy() for cname, c in da.coords.items()
-                  if cname not in dim}
-    for d, kk in zip(dim, k):
-        out_coords[swap[d]] = Coord((swap[d],), kk, {"spacing": kk[1] - kk[0]},
-                                    swap[d])
+        # transform dims renamed freq_<d> with frequency coords; all other
+        # dims and coords carried through
+        swap = {d: ce.freq_dim_name(d, prefix) for d in dim}
+        out_dims = [swap.get(d, d) for d in da.dims]
+        out_coords = {cname: c.copy() for cname, c in da.coords.items()
+                      if cname not in dim}
+        for d, kk in zip(dim, k):
+            out_coords[swap[d]] = Coord((swap[d],), kk,
+                                        {"spacing": kk[1] - kk[0]}, swap[d])
 
-    daft = LabeledArray(f, dims=out_dims, coords=out_coords, name=da.name)
+        daft = LabeledArray(f, dims=out_dims, coords=out_coords,
+                            name=da.name)
 
-    if true_phase:
-        for d, lag in zip(dim, lag_x):
-            fd = swap[d]
-            theta = -2.0 * np.pi * out_coords[fd].values * lag
-            phase = torch.as_tensor(np.cos(theta) + 1j * np.sin(theta),
-                                    dtype=f.dtype, device=f.device)
-            pl = LabeledArray(phase, dims=(fd,), coords={fd: out_coords[fd]})
-            daft = (daft * pl).assign_coords(
-                {fd: out_coords[fd].copy(
-                    attrs={**out_coords[fd].attrs, "direct_lag": lag}
-                )}
-            )
+    with telemetry.span("epilogue"):
+        if true_phase:
+            for d, lag in zip(dim, lag_x):
+                fd = swap[d]
+                theta = -2.0 * np.pi * out_coords[fd].values * lag
+                phase = telemetry.to_device(
+                    np.cos(theta) + 1j * np.sin(theta), dtype=f.dtype,
+                    device=f.device)
+                pl = LabeledArray(phase, dims=(fd,),
+                                  coords={fd: out_coords[fd]})
+                daft = (daft * pl).assign_coords(
+                    {fd: out_coords[fd].copy(
+                        attrs={**out_coords[fd].attrs, "direct_lag": lag}
+                    )}
+                )
 
-    if true_amplitude:
-        daft = daft * float(np.prod(delta_x))
+        if true_amplitude:
+            daft = daft * float(np.prod(delta_x))
 
     daft.name = da.name
     return daft.transpose(*[swap.get(d, d) for d in rawdims])
+
 
 
 _LAG_NONE_WARNING = (
@@ -448,14 +459,15 @@ def ifft(
 def _ifft_dims(daft: LabeledArray, dim, real_dim) -> list:
     """``dim`` with ``real_dim`` moved last, after the checks of
     ``xrft_tpu/transform.py:441-449``."""
-    if real_dim is not None:
-        if real_dim not in daft.dims:
-            raise ValueError(
-                "The dimension along which real IFT is taken must be one of "
-                "the existing dimensions."
-            )
-        dim = _move_to_end(dim, real_dim)
-    ce.check_valid_fft_coords(daft, dim)
+    with telemetry.span("coords"):
+        if real_dim is not None:
+            if real_dim not in daft.dims:
+                raise ValueError(
+                    "The dimension along which real IFT is taken must be "
+                    "one of the existing dimensions."
+                )
+            dim = _move_to_end(dim, real_dim)
+        ce.check_valid_fft_coords(daft, dim)
     return dim
 
 
@@ -471,13 +483,15 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
         for d, l in zip(dim, lag):
             if float(l) == 0.0:
                 continue  # exp(0) = 1: skip the identity multiply pass
-            c = _dim_coord(daft, d)
-            theta = 2.0 * np.pi * c.values * float(l)
-            phase = torch.as_tensor(np.cos(theta) + 1j * np.sin(theta),
-                                    dtype=cdtype, device=daft.device)
-            pl = LabeledArray(phase, dims=(d,),
-                              coords={d: c} if d in daft.coords else None)
-            daft = daft * pl
+            with telemetry.span("prologue"):
+                c = _dim_coord(daft, d)
+                theta = 2.0 * np.pi * c.values * float(l)
+                phase = telemetry.to_device(
+                    np.cos(theta) + 1j * np.sin(theta), dtype=cdtype,
+                    device=daft.device)
+                pl = LabeledArray(phase, dims=(d,),
+                                  coords={d: c} if d in daft.coords else None)
+                daft = daft * pl
 
     if chunks_to_segments:
         daft = _stack_segments(daft, dim)
@@ -490,95 +504,103 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
     axis_num = [daft.get_axis_num(d) for d in dim]
     N = [daft.shape[n] for n in axis_num]
 
-    # Sort by coordinates.  A frequency order that is a cyclic roll of
-    # ascending order (natural fftfreq order is the common case) moves no
-    # data here: the coordinates are reordered on the host and the data roll
-    # composes with the input ifftshift below, into nothing at all for
-    # natural order.  Other permutations, and the one-sided real axis, are
-    # sorted on the device.
-    sort_rolls: dict[str, int] = {}
-    device_sort = []
-    for d in dim:
-        if d not in daft.coords:
-            continue
-        v = daft.coords[d].values
-        n_d = v.shape[0]
-        order = np.argsort(v, kind="stable")
-        if np.array_equal(order, np.arange(n_d)):
-            continue
-        k0 = int(order[0])
-        if d != real_dim and np.array_equal(order, (np.arange(n_d) + k0) % n_d):
-            sort_rolls[d] = k0
-            for cname, c in list(daft.coords.items()):
-                if d in c.dims:
-                    daft = daft.assign_coords({cname: c.copy(
-                        values=np.take(c.values, order, axis=c.dims.index(d)))})
-        else:
-            device_sort.append(d)
-    if device_sort:
-        daft = daft.sortby(device_sort)
+    with telemetry.span("coords"):
+        # Sort by coordinates.  A frequency order that is a cyclic roll of
+        # ascending order (natural fftfreq order is the common case) moves
+        # no data here: the coordinates are reordered on the host and the
+        # data roll composes with the input ifftshift below, into nothing
+        # at all for natural order.  Other permutations, and the one-sided
+        # real axis, are sorted on the device.
+        sort_rolls: dict[str, int] = {}
+        device_sort = []
+        for d in dim:
+            if d not in daft.coords:
+                continue
+            v = daft.coords[d].values
+            n_d = v.shape[0]
+            order = np.argsort(v, kind="stable")
+            if np.array_equal(order, np.arange(n_d)):
+                continue
+            k0 = int(order[0])
+            if d != real_dim and \
+                    np.array_equal(order, (np.arange(n_d) + k0) % n_d):
+                sort_rolls[d] = k0
+                for cname, c in list(daft.coords.items()):
+                    if d in c.dims:
+                        daft = daft.assign_coords({cname: c.copy(
+                            values=np.take(c.values, order,
+                                           axis=c.dims.index(d)))})
+            else:
+                device_sort.append(d)
+        if device_sort:
+            daft = daft.sortby(device_sort)
 
-    delta_x = [
-        ce.get_coordinate_spacing(_dim_coord(daft, d), spacing_tol) for d in dim
-    ]
-    for d in dim:
-        c = _dim_coord(daft, d)
-        l = ce.lag_coord(c) if d != real_dim else c.values[0]
-        if np.abs(l) > spacing_tol:
-            raise ValueError(
-                "Inverse Fourier Transform can not be computed because "
-                f"coordinate {d} is not centered on zero frequency"
-            )
+        delta_x = [
+            ce.get_coordinate_spacing(_dim_coord(daft, d), spacing_tol)
+            for d in dim
+        ]
+        for d in dim:
+            c = _dim_coord(daft, d)
+            l = ce.lag_coord(c) if d != real_dim else c.values[0]
+            if np.abs(l) > spacing_tol:
+                raise ValueError(
+                    "Inverse Fourier Transform can not be computed because "
+                    f"coordinate {d} is not centered on zero frequency"
+                )
 
-    # input shift per non-real axis: the ifftshift (a roll by -(n//2))
-    # composed with any deferred sort roll (a roll by -k0); a total of 0
-    # moves nothing, otherwise one roll replaces the sort
-    axis_shift = []
-    data = daft.data
-    for d in dim:
-        if d == real_dim:
-            continue
-        ax = daft.get_axis_num(d)
-        if d in sort_rolls:
-            n_d = daft.shape[ax]
-            amt = (-(sort_rolls[d] + n_d // 2)) % n_d
-            if amt == (-(n_d // 2)) % n_d:
+    with telemetry.span("fft"):
+        # input shift per non-real axis: the ifftshift (a roll by -(n//2))
+        # composed with any deferred sort roll (a roll by -k0); a total of 0
+        # moves nothing, otherwise one roll replaces the sort
+        axis_shift = []
+        data = daft.data
+        for d in dim:
+            if d == real_dim:
+                continue
+            ax = daft.get_axis_num(d)
+            if d in sort_rolls:
+                n_d = daft.shape[ax]
+                amt = (-(sort_rolls[d] + n_d // 2)) % n_d
+                if amt == (-(n_d // 2)) % n_d:
+                    axis_shift.append(ax)
+                elif amt:
+                    data = shards.roll(
+                        data, {ax: amt if amt <= n_d // 2 else amt - n_d})
+            else:
                 axis_shift.append(ax)
-            elif amt:
-                data = shards.roll(
-                    data, {ax: amt if amt <= n_d // 2 else amt - n_d})
+
+        # output shift: fftshift o ifftshift is the identity, so three cases
+        if true_phase and shift:
+            post_axes, post_kind = axis_num, "fftshift"
+        elif (not true_phase) and (not shift):
+            post_axes, post_kind = axis_num, "ifftshift"
         else:
-            axis_shift.append(ax)
+            post_axes, post_kind = (), "fftshift"
 
-    # output shift: fftshift o ifftshift is the identity, so three cases
-    if true_phase and shift:
-        post_axes, post_kind = axis_num, "fftshift"
-    elif (not true_phase) and (not shift):
-        post_axes, post_kind = axis_num, "ifftshift"
-    else:
-        post_axes, post_kind = (), "fftshift"
+        f = _run_core(data, axis_num, "ifft" if real_dim is None else "irfft",
+                      engine, pre_shift_axes=axis_shift,
+                      post_shift_axes=post_axes, post_kind=post_kind)
 
-    f = _run_core(data, axis_num, "ifft" if real_dim is None else "irfft",
-                  engine, pre_shift_axes=axis_shift,
-                  post_shift_axes=post_axes, post_kind=post_kind)
+    with telemetry.span("coords"):
+        k = ce.ifreq_grids(N, delta_x, real_dim is not None, shift)
 
-    k = ce.ifreq_grids(N, delta_x, real_dim is not None, shift)
+        swap = {d: ce.freq_dim_name(d, prefix) for d in dim}
+        out_dims = [swap.get(d, d) for d in daft.dims]
+        out_coords = {cname: c.copy() for cname, c in daft.coords.items()
+                      if cname not in dim}
+        out_spacing = []
+        for d, kk, l in zip(dim, k, lag):
+            spacing = kk[1] - kk[0]
+            out_spacing.append(spacing)
+            out_coords[swap[d]] = Coord((swap[d],), kk + l,
+                                        {"spacing": spacing}, swap[d])
 
-    swap = {d: ce.freq_dim_name(d, prefix) for d in dim}
-    out_dims = [swap.get(d, d) for d in daft.dims]
-    out_coords = {cname: c.copy() for cname, c in daft.coords.items()
-                  if cname not in dim}
-    out_spacing = []
-    for d, kk, l in zip(dim, k, lag):
-        spacing = kk[1] - kk[0]
-        out_spacing.append(spacing)
-        out_coords[swap[d]] = Coord((swap[d],), kk + l, {"spacing": spacing},
-                                    swap[d])
-
-    out = LabeledArray(f, dims=out_dims, coords=out_coords, name=daft.name)
+        out = LabeledArray(f, dims=out_dims, coords=out_coords,
+                           name=daft.name)
 
     if true_amplitude:
-        out = out / float(np.prod(out_spacing))
+        with telemetry.span("epilogue"):
+            out = out / float(np.prod(out_spacing))
 
     out.name = daft.name
     return out.transpose(*[swap.get(d, d) for d in rawdims])
