@@ -58,10 +58,16 @@ PyTorch version on the card, and drives four paths at full width:
   * fields far from zero mean (phase 28): the flagship PSD of SST in
     kelvin and of surface pressure in Pa under every fft_impl and the Welch
     flagship of SST, each within 1e-5 of the same call on the float64
-    values, and the flagship's prologue time.
+    values, and the flagship's prologue time;
+  * K6, the detrend-and-window prologue (phase 29): its registers and
+    spills as ptxas reports them, K6 against its plain version in float32
+    and float64, and its time on the flagship and GLORYS12 stacks of 64
+    fields in float32 and the flagship's in float64, beside its bound and
+    the plain version.
 
 ``python3 chip_smoke.py --prologue`` times the flagship and its prologue
-alone (phase 28's timing), for the package beside the script.
+alone (phase 28's timing), for the package beside the script;
+``python3 chip_smoke.py --k6`` runs phase 29 alone.
 
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
@@ -106,7 +112,8 @@ K4_SHAPES = ((131072, 256), (4096, 251), (524288, 256), (8388608, 16),
              (32768, 4096))
 K4_MAIN = {(524288, 256), (8388608, 16)}
 RUNS = 7                       # timed runs per measurement, after warm-up
-SOURCES = ("mirror", "fft_fourstep", "binned_sum", "dft64", "dot")
+SOURCES = ("mirror", "fft_fourstep", "binned_sum", "dft64", "dot",
+           "prologue")
 # K5's shapes: the flagship's level-0 operand (the x axis split (32, 128):
 # 8*4096 blocks of 32 x 128) and the packed A/B shape
 # (scripts/perf_pallas_dot.py:91-146)
@@ -2103,9 +2110,10 @@ FAR_FIELDS = (("zero-mean", 0.0, 1.0), ("SST", 290.0, 2.0),
               ("pressure", 101325.0, 500.0))
 FAR_LIMIT = 1e-5               # PERF.md's float32 limit against float64
 # the launches of one flagship PSD on each route
-PSD_LAUNCHES = {"torch": {"mirror_psd": 1},
-                "kernel": {"fft_fourstep": 2, "mirror_psd": 1},
-                "matmul": {"dot": 1, "mirror_psd": 1}}
+PSD_LAUNCHES = {"torch": {"mirror_psd": 1, "detrend_window": 3},
+                "kernel": {"fft_fourstep": 2, "mirror_psd": 1,
+                           "detrend_window": 3},
+                "matmul": {"dot": 1, "mirror_psd": 1, "detrend_window": 3}}
 
 
 def far_field(xt, label):
@@ -2178,7 +2186,7 @@ def prologue_timing(xt, card):
     and the hann window), each from torch.profiler over three calls.
     Returns {field: {reading: ms}}."""
     from xrft_tpu_torch.config import fft_impl
-    from xrft_tpu_torch.ops.window import apply_window
+    from xrft_tpu_torch.detrend import detrend_and_window
 
     out = {}
     for label in ("zero-mean", "SST"):
@@ -2191,7 +2199,7 @@ def prologue_timing(xt, card):
             return run
 
         def prologue():
-            apply_window(xt.detrend(da, ["y", "x"], "linear"), ["y", "x"])
+            detrend_and_window(da, ["y", "x"], "linear", "hann")
 
         t_torch, t_kernel = ab_ms(psd("torch"), psd("kernel"))
         dev, _ = device_split(psd("kernel"), f"phase 28: {label} flagship "
@@ -2221,12 +2229,147 @@ def prologue_only():
     from xrft_tpu_torch.ops import _build
 
     card = card_line()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         for job in [pool.submit(_build.load, name)
-                    for name in ("mirror", "fft_fourstep")]:
+                    for name in ("mirror", "fft_fourstep", "prologue")]:
             job.result()
     print(card, flush=True)
     print(json.dumps(prologue_timing(xt, card)), flush=True)
+
+
+# ---- phase 29: K6, the detrend-and-window prologue ------------------------
+
+# K6 held to its plain version at these shapes (the flagship's rows at 8
+# fields, an odd ragged row), then timed on the benchmark's stacks: the
+# flagship and GLORYS12 in float32, the flagship in float64 (the hp path);
+# and on few long rows (8 series of 2^22 values, cut into chunks of 8192)
+K6_CHECK_SHAPES = ((8, 4096, 4096), (3, 257, 1001))
+K6_SHAPES = (((64, 4096, 4096), torch.float32),
+             ((64, 2041, 4320), torch.float32),
+             ((64, 4096, 4096), torch.float64),
+             ((8, 1, 1 << 22), torch.float32))
+K6_LIMIT = {torch.float32: 2.0 ** -22, torch.float64: 1e-13}
+
+
+def k6_ptxas(build) -> list:
+    """``nvcc -Xptxas -v`` on csrc/prologue.cu: each kernel's entry,
+    registers and spill lines."""
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    out = build.BUILD_DIR / "prologue-ptxas.o"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(out),
+         str(build.CSRC / "prologue.cu")],
+        capture_output=True, text=True, check=True)
+    out.unlink(missing_ok=True)
+    return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+
+
+def k6_phase(xt, build, card):
+    """Phase 29: K6 (``csrc/prologue.cu``) through
+    ``detrend.detrend_and_window`` against ``detrend_and_window_plain``:
+    float32 and float64, constant and linear, hann and no window, SST in
+    kelvin, within K6_LIMIT of the plain output's max, two calls bit for
+    bit, three launches a call.  Then K6_SHAPES' linear hann prologue back
+    to back between CUDA events, the kernel alone (``ms``) and the whole
+    prologue (``call_ms``: the window's factors made on the host and
+    copied, which blocks), beside the plain version, the bound (the stack
+    read once and the FFT's input written once at 3.35 TB/s) and K6's own
+    traffic (read twice, written once), and its kernels' device split.
+    Returns the timings' rows."""
+    import importlib
+
+    from xrft_tpu_torch.ops import prologue
+    from xrft_tpu_torch.ops.window import window_vectors
+
+    det = importlib.import_module("xrft_tpu_torch.detrend")
+    lines = k6_ptxas(build)
+    for ln in lines:
+        log(f"phase 29: ptxas: {ln}")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in lines if "spill" in ln),
+          "K6: a kernel spills registers")
+    for shape in K6_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            da = labeled(xt, 290 + 2 * field(shape, 29, dtype))
+            for kind in ("constant", "linear"):
+                for window in ("hann", None):
+                    n0 = prologue.detrend_window.launches
+                    got = det.detrend_and_window(da, ["y", "x"], kind, window)
+                    again = det.detrend_and_window(da, ["y", "x"], kind,
+                                                   window)
+                    n = prologue.detrend_window.launches - n0
+                    ref = det.detrend_and_window_plain(da, ["y", "x"], kind,
+                                                       window)
+                    torch.cuda.synchronize()
+                    err = rel_err(got.data, ref.data)
+                    check(torch.equal(got.data, again.data),
+                          f"K6 {shape} {dtype}: two calls differ")
+                    check(got.dtype == dtype and n == 6,
+                          f"K6 {shape} {dtype}: {got.dtype}, {n} launches")
+                    check(err <= K6_LIMIT[dtype], f"K6 {shape} {dtype} "
+                          f"{kind} {window}: rel err {err:.3e} vs plain")
+                    log(f"phase 29: K6 {shape} {dtype} {kind} {window}: rel "
+                        f"err vs plain {err:.3e} (limit "
+                        f"{K6_LIMIT[dtype]:.3e}); repeat bit-identical")
+                    del got, again, ref
+            del da
+    rows = []
+    for shape, dtype in K6_SHAPES:
+        da = labeled(xt, field(shape, 29, dtype))
+        args = (da, ["y", "x"], "linear", "hann")
+
+        def k6():
+            return det.detrend_and_window(*args)
+
+        def plain():
+            return det.detrend_and_window_plain(*args)
+
+        # the kernel alone: its plan and the window's factors made once
+        x = da.data
+        p = prologue.plan(x.shape, x.shape, (1, 2), True, {1: 0, 2: 0})
+        wy, wx = window_vectors(da, ["y", "x"], "hann", dtype, x.device)
+
+        def kernel():
+            return prologue.detrend_window(x, p, wy, wx)
+
+        err = rel_err(k6().data, plain().data)
+        t_kernel = event_ms(kernel, runs=10, warmup=2, batch=3)
+        t_k6 = event_ms(k6, runs=10, warmup=2, batch=3)
+        t_plain = event_ms(plain, runs=5, warmup=1, batch=2)
+        value = x.numel() * x.element_size()
+        least = bound(2 * value, 0)[0]
+        dev, _ = device_split(k6, f"phase 29: K6 {shape} {dtype}", card)
+        rows.append({"shape": list(shape), "dtype": str(dtype),
+                     "ms": t_kernel, "call_ms": t_k6, "plain_ms": t_plain,
+                     "bound_ms": least,
+                     "traffic_bound_ms": bound(3 * value, 0)[0],
+                     "device_ms": dev, "rel_err_vs_plain": err})
+        log(f"phase 29: K6 {shape} {dtype}, linear + hann, back to back: "
+            f"the kernel alone {t_kernel:.3f} ms ({least / t_kernel:.1%} of "
+            f"the bound {least:.3f} ms; {3 * value / t_kernel / 1e6:.0f} "
+            f"GB/s of its own traffic); the whole prologue (the window's "
+            f"factors made and copied) {t_k6:.3f} ms, plain {t_plain:.3f} "
+            f"ms; device {dev:.3f} ms; rel err vs plain {err:.3e} [{card}]")
+        del da, x, wy, wx
+    return rows
+
+
+def k6_only():
+    """``python3 chip_smoke.py --k6``: phase 29 alone; its last line is the
+    timings' JSON."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device "
+                         "(torch.cuda.is_available() is false)")
+    import xrft_tpu_torch as xt
+    from xrft_tpu_torch.ops import _build
+
+    card = card_line()
+    _build.load("prologue")
+    log(f"phase 29: {card}; nvcc {_build.build_seconds}")
+    print(json.dumps(k6_phase(xt, _build, card)), flush=True)
+
 
 def main():
     # ---- phase 1: device, versions, build --------------------------------
@@ -2236,7 +2379,7 @@ def main():
     import xrft_tpu_torch as xt
     from xrft_tpu_torch.config import fft_impl, psd_mirror_impl
     from xrft_tpu_torch.ops import (_build, binning, dft64, dot, fft_fourstep,
-                                    mirror)
+                                    mirror, prologue)
 
     card = card_line()
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
@@ -2321,15 +2464,19 @@ def main():
         ref = xt.power_spectrum(da64, **MAIN_KW)
     mirror.mirror_psd.launches = 0
     fft_fourstep.fft_last.launches = 0
+    prologue.detrend_window.launches = 0
     with fft_impl("kernel"):
         ps_kernel = xt.power_spectrum(da, **MAIN_KW)
     torch.cuda.synchronize()
     launches = {"mirror_psd": mirror.mirror_psd.launches,
-                "fft_fourstep": fft_fourstep.fft_last.launches}
+                "fft_fourstep": fft_fourstep.fft_last.launches,
+                "detrend_window": prologue.detrend_window.launches}
     log(f"phase 4: main path {MAIN_SHAPE} under fft_impl='kernel': kernel "
         f"launches {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path was not launched: {launches}")
+    check(launches["detrend_window"] == 3,
+          f"K6: {launches['detrend_window']} launches in one PSD, not 3")
     mirror.mirror_psd.launches = 0
     with fft_impl("torch"):
         ps_torch = xt.power_spectrum(da, **MAIN_KW)
@@ -2486,7 +2633,11 @@ def main():
                    "fft_fourstep": fft_fourstep.fft_last,
                    "binned_sum": binning.binned_sum,
                    "dft64": dft64.dft_last, "dot": dot.dot,
-                   "dot_fold": dot.dot_fold, "dot_dma": dot.dot_dma}, card)
+                   "dot_fold": dot.dot_fold, "dot_dma": dot.dot_dma,
+                   "detrend_window": prologue.detrend_window}, card)
+
+    # ---- phase 29: K6, the detrend-and-window prologue --------------------
+    k6 = k6_phase(xt, _build, card)
     k2_bound = bound(k2_bytes, k2_flops)
     dot_src = "xrft_tpu_torch/csrc/dot.cu"
     engine, packed = k5["engine"], k5["packed"]
@@ -2543,6 +2694,13 @@ def main():
              ("library_ms", "library_ms"),
              ("library_event_ms", "library_event_ms"),
              ("producer", "dma_producer"))}},
+        {"name": "detrend_window", "route": "cuda",
+         "source": "xrft_tpu_torch/csrc/prologue.cu", "replaces": None,
+         "launches": launches["detrend_window"],
+         "rel_err_vs_plain": max(r["rel_err_vs_plain"] for r in k6),
+         "ms": k6[0]["ms"], "plain_ms": k6[0]["plain_ms"],
+         "bound_ms": k6[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shapes": k6},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2550,4 +2708,5 @@ def main():
 
 
 if __name__ == "__main__":
-    prologue_only() if sys.argv[1:] == ["--prologue"] else main()
+    {("--prologue",): prologue_only, ("--k6",): k6_only}.get(
+        tuple(sys.argv[1:]), main)()

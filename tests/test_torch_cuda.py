@@ -6,6 +6,7 @@ torch is installed, without the JAX-configuring conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda -q tests/test_torch_cuda.py
 """
 
+import importlib
 import warnings
 
 import numpy as np
@@ -22,7 +23,7 @@ from xrft_tpu_torch import (LabeledArray, convolve, czt, dct, dctn, fft,
 from xrft_tpu_torch.config import (binned_sum_impl, fft_impl, full_fp32,
                                    level0_impl, psd_mirror_impl)
 from xrft_tpu_torch.ops import (binning, dft64, dot, fft_core, fft_fourstep,
-                                mirror)
+                                mirror, prologue)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +139,9 @@ def test_kernels_reject_strided_input(cuda):
         dft64.dft_last(z[:, ::2])
     with pytest.raises(ValueError, match="complex128 only"):
         dft64.dft_last(z.to(torch.complex64))
+    p = prologue.plan((256, 512), (256, 256), (0, 1), True, {0: 0, 1: 0})
+    with pytest.raises(ValueError, match="contiguous"):
+        prologue.detrend_window(x[:, ::2], p)
 
 
 @pytest.mark.parametrize("sign", [-1, 1])
@@ -580,9 +584,9 @@ def test_namesakes_through_kernels(cuda, impl):
 @pytest.mark.parametrize("impl", ["torch", "kernel"])
 def test_one_rank_nccl_sharded_psd(cuda, impl):
     """The sharded path on one card: a one-rank NCCL group, a DeviceMesh
-    over it, the pencil chain's all_to_all through NCCL, and K1 (and K2
-    under "kernel") on the local block; equal to the unsharded PSD, sharded
-    over the batch as planned."""
+    over it, the pencil chain's all_to_all through NCCL, and K6, K1 (and K2
+    under "kernel") on the local block, K6's moments summed through NCCL;
+    equal to the unsharded PSD, sharded over the batch as planned."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
 
@@ -604,9 +608,11 @@ def test_one_rank_nccl_sharded_psd(cuda, impl):
         with fft_impl(impl):
             ref = power_spectrum(da, **kw)
             k1, k2 = mirror.mirror_psd.launches, fft_fourstep.fft_last.launches
+            k6 = prologue.detrend_window.launches
             got = sharded_power_spectrum(da, mesh, {"y": "fp"}, **kw)
             torch.cuda.synchronize()
         assert mirror.mirror_psd.launches == k1 + 1
+        assert prologue.detrend_window.launches == k6 + 3
         assert (fft_fourstep.fft_last.launches - k2 >= 2) == (impl == "kernel")
         assert tuple(got.data.placements) == (Shard(0),)
         assert got.data.to_local().shape == (4, 256, 256)
@@ -682,19 +688,95 @@ def test_detrend_far_from_zero_mean_on_the_card(cuda, field, kind):
     assert _rel(got, ref) <= 2e-6
 
 
+def _k6_field(cuda, data, shape, seed):
+    """N(0, 1), SST in kelvin (290 + 2 N(0, 1)) or 12-bit counts, in
+    float64 on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if data == "counts":
+        return torch.randint(0, 4096, shape, generator=g,
+                             device=cuda).double()
+    x = torch.randn(shape, generator=g, device=cuda, dtype=torch.float64)
+    return 290 + 2 * x if data == "sst" else x
+
+
+# shape, detrend dims: the flagship's and GLORYS12's rows, an odd ragged
+# row, a detrend over the trailing axis alone, and few long rows, which K6
+# cuts into chunks of 8192 (128 and 65 a row)
+K6_CASES = {"4096": ((2, 4096, 4096), ["y", "x"]),
+            "2041x4320": ((2, 2041, 4320), ["y", "x"]),
+            "257x1001": ((3, 257, 1001), ["y", "x"]),
+            "rows-1001": ((3, 257, 1001), "x"),
+            "long-rows": ((2, 4, 1 << 20), "x"),
+            "long-2d": ((1, 3, (1 << 19) + 7), ["y", "x"])}
+
+
+@pytest.mark.parametrize("window", ["hann", "tukey", None])
+@pytest.mark.parametrize("kind", ["constant", "linear"])
+@pytest.mark.parametrize("data", ["normal", "sst", "counts"])
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_matches_plain(cuda, dtype, case, data, kind, window):
+    """K6 against its plain version (``detrend_and_window_plain``): within
+    2^-22 (float32) or 1e-13 (float64) of the plain output's largest
+    |value|, the plain output's dtype, dims, coordinates, name and attrs;
+    two calls bit for bit the same, three launches each."""
+    det = importlib.import_module("xrft_tpu_torch.detrend")
+    shape, dims = K6_CASES[case]
+    x = _k6_field(cuda, data, shape, 18).to(dtype)
+    da = LabeledArray(x, ("time", "y", "x"),
+                      coords={"y": np.arange(shape[1]) * 0.5,
+                              "x": np.arange(shape[2]) * 0.5},
+                      name="sst", attrs={"units": "K"})
+    before = prologue.detrend_window.launches
+    got = det.detrend_and_window(da, dims, kind, window)
+    again = det.detrend_and_window(da, dims, kind, window)
+    assert prologue.detrend_window.launches == before + 6
+    ref = det.detrend_and_window_plain(da, dims, kind, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got.data, again.data)
+    assert got.dtype == ref.dtype == dtype and got.dims == ref.dims
+    assert got.name == ref.name and got.attrs == ref.attrs
+    assert set(got.coords) == set(ref.coords)
+    for c in ref.coords:
+        np.testing.assert_array_equal(got.coords[c].values,
+                                      ref.coords[c].values)
+    lim = 2.0 ** -22 if dtype == torch.float32 else 1e-13
+    err = (got.data - ref.data).abs().max().item()
+    assert err <= lim * ref.data.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_on_a_block_off_its_alignment(cuda, dtype):
+    """A stack one value past a 16-byte boundary: K6 reads and writes it
+    value by value, within its limits of the plain version."""
+    det = importlib.import_module("xrft_tpu_torch.detrend")
+    shape = (3, 257, 1001)
+    flat = _k6_field(cuda, "sst", (1 + 3 * 257 * 1001,), 19).to(dtype)
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    da = LabeledArray(x, ("time", "y", "x"))
+    got = det.detrend_and_window(da, ["y", "x"], "linear", "hann")
+    ref = det.detrend_and_window_plain(da, ["y", "x"], "linear", "hann")
+    torch.cuda.synchronize()
+    lim = 2.0 ** -22 if dtype == torch.float32 else 1e-13
+    err = (got.data - ref.data).abs().max().item()
+    assert err <= lim * ref.data.abs().max().item()
+
+
 @pytest.mark.parametrize("path,syncs,h2d", [
-    ("psd", 4, 2 * 256 * 8 + 2 * 256 * 4),     # float64 coords, float32 windows
-    ("psd-hp", 4, 4 * 256 * 8),
+    ("psd", 2, 2 * 256 * 4),                   # the float32 windows
+    ("psd-hp", 2, 2 * 256 * 8),
     ("irfft2", 0, 0),
 ])
 def test_host_syncs_match_the_profilers_stream_syncs(cuda, tmp_path, path,
                                                      syncs, h2d):
     """One call of each benchmark path on a small stack: the program's own
     count of its blocking copies onto the card (``telemetry``'s
-    ``host_syncs``: the detrend's coordinate vector of each fitted axis and
-    each axis's window) equals the host's ``cudaStreamSynchronize`` calls
-    in a profiler trace of the call; a copy that bypassed ``to_device``
-    would show in the trace alone."""
+    ``host_syncs``: each axis's window; K6 computes the detrend's
+    coordinates from the index) equals the host's ``cudaStreamSynchronize``
+    calls in a profiler trace of the call; a copy that bypassed
+    ``to_device`` would show in the trace alone.  The PSD paths' prologue
+    is K6's three launches, none left to the plain version."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -740,3 +822,5 @@ def test_host_syncs_match_the_profilers_stream_syncs(cuda, tmp_path, path,
     assert snap["h2d_bytes"] == h2d
     assert snap["cufft_plans"] == 0          # made by the first call
     assert snap["launches"]["K1"] == (path == "psd")
+    assert snap["launches"]["K6"] == (0 if path == "irfft2" else 3)
+    assert snap["prologue_plain_cuda"] == 0

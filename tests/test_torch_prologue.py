@@ -1,0 +1,232 @@
+"""The prologue of the port's transforms, ``detrend.detrend_and_window``,
+on the CPU: which stacks kernel K6 takes (``detrend.k6_takes``), the plain
+version the CPU runs (``detrend`` followed by ``apply_window``, bit for bit
+and in metadata), and K6's arithmetic replayed in torch on the host
+(:func:`k6_replay`) through the wrapper's plan and metadata, against the
+plain version.  The kernel itself runs on the card only
+(``test_torch_cuda.py::test_k6_matches_plain``).
+"""
+
+import importlib
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import xrft_tpu_torch as xt
+from xrft_tpu_torch.ops import prologue
+from xrft_tpu_torch.ops.window import apply_window
+
+from test_torch_detrend_far import CASES, DIMS, field
+from torch_parity import pair
+
+# the module (the package's ``detrend`` is the function)
+det = importlib.import_module("xrft_tpu_torch.detrend")
+
+F32, F64 = torch.float32, torch.float64
+SHAPE = (6, 40, 64)
+COORDS = {"z": np.arange(6) * 3.0, "y": np.arange(40) * 0.25,
+          "x": np.arange(64) * 0.5}
+
+
+@pytest.mark.parametrize("dtype,device,shape,axes,kind,window,contig,takes", [
+    (F32, "cuda", (64, 4096, 4096), (1, 2), "linear", "hann", True, True),
+    (F64, "cuda", (64, 4096, 4096), (1, 2), "linear", "hann", True, True),
+    (F32, "cuda", (64, 2041, 4320), (2, 1), "linear", "hann", True, True),
+    (F32, "cuda", (3, 257, 1001), (2,), "constant", None, True, True),
+    (F32, "cuda", (1001,), (0,), "linear", "tukey", True, True),
+    (F32, "cuda", (40, 64), (0, 1), "constant", True, True, True),
+    (F32, "cuda", (3, 40, 64), (1, 2), "linear", "tukey", True, True),
+    (F32, "cpu", (3, 40, 64), (1, 2), "linear", "hann", True, False),
+    (F32, "cuda", (3, 40, 64), (1,), "linear", "hann", True, False),
+    (F32, "cuda", (3, 40, 64), (0, 1), "linear", "hann", True, False),
+    (F32, "cuda", (3, 40, 64), (0, 1, 2), "linear", None, True, False),
+    (F32, "cuda", (3, 40, 64), (0, 2), "constant", None, True, False),
+    (F32, "cuda", (3, 40, 64), (1, 2), None, "hann", True, False),
+    (F32, "cuda", (3, 40, 64), (1, 2), "linear", "no-such", True, False),
+    (F32, "cuda", (3, 40, 64), (1, 2), "linear", "hann", False, False),
+    (F32, "cuda", (3, 0, 64), (1, 2), "linear", "hann", True, False),
+    (torch.float16, "cuda", (3, 40, 64), (1, 2), "linear", None, True,
+     False),
+    (torch.bfloat16, "cuda", (3, 40, 64), (2,), "constant", None, True,
+     False),
+    (torch.complex64, "cuda", (3, 40, 64), (1, 2), "linear", None, True,
+     False),
+    (torch.complex128, "cuda", (3, 40, 64), (1, 2), "constant", "hann", True,
+     False),
+    (torch.int16, "cuda", (3, 40, 64), (1, 2), "linear", None, True, False),
+    (torch.uint8, "cuda", (3, 40, 64), (2,), "constant", "hann", True, False),
+])
+def test_which_stacks_k6_takes(dtype, device, shape, axes, kind, window,
+                               contig, takes):
+    """Real float32/float64 CUDA data, contiguous and not empty; a constant
+    or linear detrend over the trailing axis or the two trailing axes, in
+    either order; any window or none.  Nothing else."""
+    assert det.k6_takes(dtype, device, shape, axes, kind, window,
+                        contig) is takes
+
+
+def assert_identical(got, want):
+    """Equal bit for bit, in dtype, dims, name, attrs and coordinates."""
+    assert got.dtype == want.dtype and tuple(got.dims) == tuple(want.dims)
+    assert got.name == want.name and got.attrs == want.attrs
+    assert set(got.coords) == set(want.coords)
+    for c in want.coords:
+        np.testing.assert_array_equal(got.coords[c].values,
+                                      want.coords[c].values)
+        assert got.coords[c].attrs == want.coords[c].attrs
+    assert torch.equal(got.data, want.data)
+
+
+def labeled(dtype, name, shape=SHAPE, seed=11):
+    vals = field(name, dtype, shape, seed)
+    coords = {d: COORDS[d][:n] for d, n in zip("zyx", shape)}
+    _, da = pair(vals, ("z", "y", "x"), coords=coords, name="f",
+                 attrs={"units": "K"})
+    return da
+
+
+@pytest.mark.parametrize("window", [None, "hann", "tukey"])
+@pytest.mark.parametrize("ndim", sorted(DIMS))
+@pytest.mark.parametrize("kind", [None, "constant", "linear"])
+@pytest.mark.parametrize("dtype,name", CASES)
+def test_the_cpu_prologue_is_detrend_then_window(dtype, name, kind, ndim,
+                                                 window):
+    """On the CPU the prologue is the two steps it replaces, as they are:
+    the same values bit for bit, and the same metadata."""
+    da = labeled(dtype, name)
+    dims = DIMS[ndim]
+    got = det.detrend_and_window(da, dims, kind, window)
+    want = xt.detrend(da, dims, kind)
+    if window is not None:
+        _, want = apply_window(want, dims, window)
+    assert_identical(got, want)
+
+
+def k6_replay(x, p, wy=None, wx=None, reduce=None):
+    """K6's arithmetic in torch on the host, for
+    :func:`~xrft_tpu_torch.ops.prologue.detrend_window`'s arguments: the
+    moments in float64 in another order than the plain version's, then, per
+    value, the kernel's float64 operations in its order, each rounded on
+    its own, one rounding to x's dtype, and the window's product in it."""
+    v = x.reshape(p.batch, p.ny, p.nx).double()
+    ci = p.cy0 + torch.arange(p.ny, dtype=F64)[:, None]
+    cj = p.cx0 + torch.arange(p.nx, dtype=F64)
+    rows = v.sum(2, keepdim=True)
+    mom = torch.stack([rows.sum((1, 2)), (rows * ci).sum((1, 2)),
+                       (v * cj).sum((1, 2))])
+    if reduce is not None:
+        reduce(mom)
+    mean = (mom[0] / p.n_el)[:, None, None]
+    zero = torch.zeros_like(mean)
+    ay = (mom[1] / p.css_y)[:, None, None] if p.parts in (1, 3, 4) else zero
+    ax = (mom[2] / p.css_x)[:, None, None] if p.parts >= 2 else zero
+    ty, tx = ay * ci, ax * cj
+    d = {0: lambda: v - mean,
+         1: lambda: v - (mean + ty),
+         2: lambda: v - (mean + tx),
+         3: lambda: (v - (mean + ty)) - tx,
+         4: lambda: (v - (mean + tx)) - ty}[p.parts]()
+    r = d.to(x.dtype)
+    if wx is not None:
+        r = r * (wx if wy is None else wy[:, None] * wx)
+    prologue.detrend_window.launches += 3
+    return r.reshape(x.shape)
+
+
+@pytest.fixture
+def replay(monkeypatch):
+    """A switch to K6's route on the CPU: ``k6_takes`` asked as for a CUDA
+    tensor, and the kernel's launch replaced by :func:`k6_replay`."""
+    real = det.k6_takes
+
+    def on():
+        monkeypatch.setattr(det, "k6_takes",
+                            lambda dtype, device, *a: real(dtype, "cuda", *a))
+        monkeypatch.setattr(prologue, "detrend_window", k6_replay)
+        k6_replay.launches = 0
+        return k6_replay
+
+    return on
+
+
+FAR = ["counts", "sst", "pressure"]
+
+
+@pytest.mark.parametrize("window", [None, "hann", True])
+@pytest.mark.parametrize("dims", ["x", ("y", "x"), ("x", "y")])
+@pytest.mark.parametrize("kind", ["constant", "linear"])
+@pytest.mark.parametrize("shape", [SHAPE, (3, 1, 33), (2, 7, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", FAR)
+def test_k6s_arithmetic_is_the_plain_versions(replay, name, dtype, shape,
+                                              kind, dims, window):
+    """The wrapper's plan and metadata, with the kernel's arithmetic
+    replayed, against the plain version: bit for bit where every moment
+    sums exactly (12-bit counts), else within 2^-22 (float32) or 1e-13
+    (float64) of the plain result's largest |value|; the same metadata
+    either way, and three launches."""
+    da = labeled(dtype, name, shape)
+    dims = list(dims)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)      # window=True
+        want = xt.detrend(da, dims, kind)
+        if window is not None:
+            _, want = apply_window(want, dims, window)
+        replayed = replay()
+        got = det.detrend_and_window(da, dims, kind, window)
+    assert replayed.launches == 3
+    if name == "counts":
+        assert_identical(got, want)
+        return
+    tol = 2.0 ** -22 if dtype == "float32" else 1e-13
+    diff = (got.data.double() - want.data.double()).abs().max()
+    assert diff <= tol * want.data.double().abs().max()
+    assert_identical(got.copy(data=want.data), want)
+    assert got.dtype == want.dtype
+
+
+def test_the_plain_prologue_counts_on_a_cuda_tensor_only(monkeypatch):
+    """``prologue_plain_cuda`` counts the prologues of CUDA data that K6
+    does not take; CPU data are not counted."""
+    from xrft_tpu_torch import telemetry
+
+    da = labeled("float32", "sst")
+    telemetry.reset()
+    det.detrend_and_window(da, ["z", "y", "x"], "linear", "hann")
+    det.detrend_and_window(da, ["y", "x"], "linear", "hann")
+    assert telemetry.snapshot()["prologue_plain_cuda"] == 0
+    telemetry.reset()
+
+
+@pytest.mark.parametrize("rows,nx,want", [
+    (64 * 4096, 4096, (1, 4096)),       # the flagship: whole rows
+    (64 * 2041, 4320, (1, 4320)),
+    (8, 1 << 22, (512, 8192)),          # long rows: cut into chunks
+    (1, 5000, (1, 5000)),
+    (4, 100, (1, 100)),                 # short rows stay whole
+    (1, 8193, (2, 8192)),               # one column past a chunk
+])
+def test_rows_are_cut_only_where_too_few_fill_the_card(rows, nx, want):
+    """A row is one warp's task up to 8192 columns and is cut into chunks
+    of 8192 beyond, however many rows there are (8 rows of 2^22 values give
+    4096 warps)."""
+    nchunks, cw = prologue.chunking(nx)
+    assert (nchunks, cw) == want
+    assert (nchunks - 1) * cw < nx <= nchunks * cw
+
+
+def test_plan_of_a_sharded_block():
+    """The centred coordinates of a block start at its global offset; the
+    count and sums of squares are the whole field's."""
+    p = prologue.plan((4, 32, 48), (4, 16, 48), (1, 2), True, {1: 16, 2: 0})
+    assert (p.batch, p.ny, p.nx, p.parts) == (4, 16, 48, 3)
+    assert (p.cy0, p.cx0) == (16 - 15.5, -23.5)
+    assert p.n_el == 32 * 48
+    c = np.arange(32) - 15.5
+    assert p.css_y == float(np.sum(c ** 2)) * 48
+    q = prologue.plan((5, 9), (5, 9), (1,), False, {1: 0})
+    assert (q.batch, q.ny, q.nx, q.parts, q.cy0) == (5, 1, 9, 0, 0.0)
+    assert q.css_x == q.css_y == 0.0

@@ -23,10 +23,11 @@ from xrft_tpu_torch.ops import dot, fft_plan, mirror
 PKG = Path(xt.__file__).resolve().parent
 
 FLAGSHIP = dict(dim=["y", "x"], window="hann", detrend="linear")
+# one prologue span holds the detrend and the window
+# (``detrend.detrend_and_window``); hp's first is its float64 promotion
 FLAGSHIP_SPANS = ["call", "coords", "coords", "coords", "coords", "prologue",
-                  "prologue", "fft", "coords", "epilogue", "epilogue",
-                  "coords"]
-HP_SPANS = ["call", "prologue", "coords", "coords", "prologue", "prologue",
+                  "fft", "coords", "epilogue", "epilogue", "coords"]
+HP_SPANS = ["call", "prologue", "coords", "coords", "prologue",
             "fft", "coords", "epilogue", "epilogue", "coords"]
 IFFT_SPANS = ["call", "coords", "coords", "fft", "coords"]
 
@@ -193,7 +194,8 @@ def test_snapshot_and_reset_hold_the_kernels_counts():
     assert snap["host_syncs"] == snap["h2d_bytes"] == 0     # the CPU
     assert snap["host_wait_ns"] == snap["cufft_plans"] == 0
     assert snap["launches"] == {"K1": 3, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0, "K5c": 2}
+                                "K5a": 0, "K5b": 0, "K5c": 2, "K6": 0}
+    assert snap["prologue_plain_cuda"] == 0                 # the CPU
     assert set(snap["table_misses"]) == {"fft_plan", "fft_fourstep", "dft64",
                                          "stacked_fft", "matmul_fft"}
     assert snap["table_misses"]["fft_plan"] in (0, 1)  # 0: cached earlier
@@ -368,26 +370,64 @@ def test_the_exported_names_are_the_entries():
 
 def test_the_hp_paths_float64_copy_goes_once_detrended(monkeypatch):
     """The float64 copy the hp path makes of the data is gone by the time
-    the window is applied: no wrapper holds it through ``transform.fft``."""
+    the detrended, windowed data are transformed: no wrapper holds it
+    through ``transform.fft``."""
     import gc
     import sys
     import weakref
 
     det = sys.modules["xrft_tpu_torch.detrend"]
-    win = sys.modules["xrft_tpu_torch.ops.window"]
+    tr = sys.modules["xrft_tpu_torch.transform"]
     seen = {}
 
-    def detrend(da, *args, **kwargs):
+    def detrend_and_window(da, *args, **kwargs):
         seen["copy"] = weakref.ref(da.data)
-        return real_detrend(da, *args, **kwargs)
+        return real_prologue(da, *args, **kwargs)
 
-    def apply_window(da, *args, **kwargs):
+    def run_core(*args, **kwargs):
         gc.collect()
         seen["alive"] = seen["copy"]() is not None
-        return real_window(da, *args, **kwargs)
+        return real_core(*args, **kwargs)
 
-    real_detrend, real_window = det.detrend, win.apply_window
-    monkeypatch.setattr(det, "detrend", detrend)
-    monkeypatch.setattr(win, "apply_window", apply_window)
+    real_prologue, real_core = det.detrend_and_window, tr._run_core
+    monkeypatch.setattr(det, "detrend_and_window", detrend_and_window)
+    monkeypatch.setattr(tr, "_run_core", run_core)
     hp()
     assert seen == {"copy": seen["copy"], "alive": False}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_the_prologues_output_goes_once_the_route_converts_it(monkeypatch,
+                                                              traced):
+    """The hp path's detrended, windowed float64 data are gone by the time
+    cuFFT's complex transform runs on their complex128 copy: no frame of
+    ``transform.fft`` holds them past the route's own reference, also under
+    ``torch.profiler`` with Python stacks (whose tracer makes each active
+    frame hold its arguments)."""
+    import gc
+    import sys
+    import weakref
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    det = sys.modules["xrft_tpu_torch.detrend"]
+    seen = {}
+
+    def detrend_and_window(*args, **kwargs):
+        out = real_prologue(*args, **kwargs)
+        seen["output"] = weakref.ref(out.data)
+        return out
+
+    def cufft(fn, x, **kwargs):
+        gc.collect()
+        seen["alive"] = seen["output"]() is not None
+        return real_cufft(fn, x, **kwargs)
+
+    real_prologue, real_cufft = det.detrend_and_window, tm.cufft
+    monkeypatch.setattr(det, "detrend_and_window", detrend_and_window)
+    monkeypatch.setattr(tm, "cufft", cufft)
+    with profile(activities=[ProfilerActivity.CPU], with_stack=True) \
+            if traced else nullcontext():
+        hp()
+    assert seen == {"output": seen["output"], "alive": False}

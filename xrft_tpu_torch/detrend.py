@@ -22,9 +22,19 @@ one centered first moment per axis) are stacked into one local tensor and
 summed across the ranks of the sharded axes in one all_reduce per mesh axis
 (:func:`~xrft_tpu_torch.ops.shards.all_sum`), and the result keeps the
 input's sharding.
+
+Every transform's prologue, the detrend and then the window over the same
+dims, is :func:`detrend_and_window`.  On the card, a float32 or float64
+stack detrended over its trailing axis or two goes through kernel K6
+(``ops/prologue.py``, ``csrc/prologue.cu``): the same float64 moments and
+trend, summed in another order, in two passes over the data and with no
+float64 copy of it.  Everything else, and everything on the CPU, takes
+:func:`detrend_and_window_plain`, the two steps as torch ops.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -33,8 +43,12 @@ from . import telemetry
 from .dtypes import promote
 from .labeled import LabeledArray
 from .ops import shards
+from .ops.window import WINDOW_TYPES, apply_window, window_vectors
 
-__all__ = ["detrend"]
+__all__ = ["detrend", "detrend_and_window", "detrend_and_window_plain",
+           "k6_takes"]
+
+_DETRENDS = ["constant", "linear", None]
 
 
 def detrend(da: LabeledArray, dim, detrend_type="constant") -> LabeledArray:
@@ -46,29 +60,118 @@ def detrend(da: LabeledArray, dim, detrend_type="constant") -> LabeledArray:
       - 'linear'   : remove the least-squares linear (hyperplane) fit over
                      ``dim``
     """
+    return detrend_and_window(da, dim, detrend_type)
+
+
+def k6_takes(dtype: torch.dtype, device_type: str, shape, axes,
+             detrend_type, window, contiguous: bool = True) -> bool:
+    """Whether K6 (``ops/prologue.py``) runs the prologue of data of
+    ``dtype``, ``shape`` (global) and local contiguity on ``device_type``:
+    real float32 or float64 CUDA data, non-empty and contiguous, a constant
+    or linear detrend over the trailing axis or the two trailing axes (in
+    either order), and any window or none.  Everything else takes the plain
+    version."""
+    nd = len(shape)
+    return (device_type == "cuda" and dtype in (torch.float32, torch.float64)
+            and contiguous and math.prod(shape) > 0
+            and detrend_type in ("constant", "linear")
+            and (window is None or window is True or window in WINDOW_TYPES)
+            and tuple(sorted(axes)) in ((nd - 1,), (nd - 2, nd - 1)))
+
+
+def detrend_and_window(da: LabeledArray, dim, detrend_type=None,
+                       window=None) -> LabeledArray:
+    """:func:`detrend` over ``dim``, then the separable ``window`` over it
+    (:func:`~xrft_tpu_torch.ops.window.apply_window`), as one step: the
+    prologue of every transform.  Where :func:`k6_takes` holds, kernel K6
+    does both in two passes over the data, with the plain version's float64
+    moments and trend and its roundings (only the order of the moments' sums
+    differs); the result carries the dims, coordinates, name and attrs the
+    two steps give.  Otherwise :func:`detrend_and_window_plain` runs, and
+    on a CUDA tensor counts in ``telemetry``'s ``prologue_plain_cuda``."""
+    dim, axes = _resolve(da, dim, detrend_type)
+    if detrend_type is None and window is None:
+        return da
+    xl = shards.local(da.data)
+    if k6_takes(da.dtype, xl.device.type, da.shape, axes, detrend_type,
+                window, xl.is_contiguous()):
+        return _k6(da, dim, axes, detrend_type == "linear", window)
+    if xl.is_cuda:
+        telemetry.count("prologue_plain_cuda")
+    return _plain(da, dim, axes, detrend_type, window)
+
+
+def detrend_and_window_plain(da: LabeledArray, dim, detrend_type=None,
+                             window=None) -> LabeledArray:
+    """The plain version of :func:`detrend_and_window`, on any device and
+    dtype, and K6's oracle: :func:`_detrended` and then ``apply_window``,
+    as torch ops."""
+    dim, axes = _resolve(da, dim, detrend_type)
+    return _plain(da, dim, axes, detrend_type, window)
+
+
+def _resolve(da: LabeledArray, dim, detrend_type) -> tuple:
+    """(dims as a list, their axes); raises on an unknown detrend."""
     if dim is None:
         dim = list(da.dims)
     elif isinstance(dim, str):
         dim = [dim]
-
-    if detrend_type not in ["constant", "linear", None]:
+    if detrend_type not in _DETRENDS:
         raise NotImplementedError(
             f"{detrend_type} is not a valid detrending option. Valid "
             "options are: 'constant','linear', or None."
         )
+    return dim, tuple(da.get_axis_num(d) for d in dim)
 
-    if detrend_type is None:
-        return da
+
+def _plain(da: LabeledArray, dim, axes, detrend_type, window):
+    if detrend_type is not None:
+        da = _detrend_plain(da, axes, detrend_type == "linear")
+    if window is not None:
+        _, da = apply_window(da, dim, window_type=window)
+    return da
+
+
+def _detrend_plain(da: LabeledArray, axes, linear: bool) -> LabeledArray:
     # integer, bool and float16 data in the dtype xrft_tpu computes them in
     # (``dtypes``): JAX's float for "constant", numpy's result_type(dtype,
     # float32) for "linear"
-    linear = detrend_type == "linear"
     x = promote(da.data, "numpy" if linear else "jax")
-    axes = tuple(da.get_axis_num(d) for d in dim)
     out = da.copy(data=shards.like(x, _detrended(x, axes, linear)))
     if not linear:
         # xrft_tpu's ``da - da.mean(dim)`` drops the name and the user attrs
         chunks = da.attrs.get("_chunks")
+        out.name = None
+        out.attrs = {"_chunks": dict(chunks)} if chunks else {}
+    return out
+
+
+def _k6(da: LabeledArray, dim, axes, linear: bool, window) -> LabeledArray:
+    """K6 on each rank's block: the window's factors copied to the card
+    first, while the queue is empty, then the moments, summed over the
+    ranks of the sharded axes in ``axes``, then the trend and window."""
+    from .ops import prologue
+
+    x = da.data
+    xl = shards.local(x)
+    nd = x.ndim
+    lo = {a: shards.local_range(x, a)[0] for a in axes}
+    factors = {}
+    if window is not None:
+        for a, w in zip(axes, window_vectors(da, dim, window, xl.dtype,
+                                             xl.device)):
+            factors[a] = w[lo[a]:lo[a] + xl.shape[a]]
+    p = prologue.plan(x.shape, xl.shape, axes, linear, lo)
+    y = prologue.detrend_window(
+        xl, p, wy=factors.get(nd - 2), wx=factors.get(nd - 1),
+        reduce=lambda mom: shards.all_sum(x, mom, axes))
+    out = da.copy(data=shards.like(x, y))
+    if window is not None or not linear:
+        # the window's product, like the constant detrend, drops the name
+        # and the user attrs (``LabeledArray._binary``)
+        chunks = da.attrs.get("_chunks") or {}
+        if window is not None:
+            chunks = {d: c for d, c in chunks.items() if d in da.dims}
         out.name = None
         out.attrs = {"_chunks": dict(chunks)} if chunks else {}
     return out

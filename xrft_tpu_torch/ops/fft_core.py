@@ -116,7 +116,13 @@ def _post(out, post_shift_axes, post_kind):
 
 
 def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
-    """Complex N-D FFT over ``axes``."""
+    """Complex N-D FFT over ``axes``.  ``x`` may come in a one-item list,
+    taken out here, so that no caller's frame holds it (a traced call's
+    frames keep their arguments until they return): real input, converted
+    to complex below, then goes before cuFFT allocates (``transform.fft``
+    hands over the hp path's float64 stack so)."""
+    if isinstance(x, list):
+        x = x.pop()
     x = _input(x, real=False)
     axes = _norm(axes, x.ndim)
     if _impl() == "matmul":
@@ -125,9 +131,14 @@ def fftn(x: torch.Tensor, axes, pre_shift_axes=(), post_shift_axes=()):
     if pre_shift_axes:
         x = ifftshift(x, pre_shift_axes)
     if _impl() == "torch":
+        # torch.fft.fftn converts real input to complex itself; converted
+        # here, the real data go first (see above)
+        if not x.is_complex():
+            x = x.to(complex_dtype(x.dtype))
         out = telemetry.cufft(torch.fft.fftn, x, dim=axes)
     else:
         out = _kernel_fftn(x, axes)
+    del x                                   # before the shift allocates
     return _post(out, post_shift_axes, "fftshift")
 
 

@@ -22,7 +22,8 @@ from .. import telemetry
 from ..dtypes import float_dtype
 from ..labeled import LabeledArray
 
-__all__ = ["apply_window", "WINDOW_TYPES"]
+__all__ = ["apply_window", "build_window", "window_vectors",
+           "WINDOW_TYPES"]
 
 # the reference's allowlist (xrft/xrft.py:48-72)
 WINDOW_TYPES = [
@@ -44,11 +45,11 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
     return float_dtype(dtype, "float64").to_real()
 
 
-def build_window(da: LabeledArray, dims, window_type="hann", dtype=None,
-                 device=None) -> LabeledArray:
-    """The separable N-D window over ``dims`` as a LabeledArray, in
-    ``dtype`` (default: the real dtype of ``da``) on ``device`` (default:
-    ``da``'s)."""
+def window_vectors(da: LabeledArray, dims, window_type, dtype,
+                   device) -> list:
+    """The 1-D factors of the window over ``dims`` (a list), in ``dtype``
+    on ``device``, each generated in float64 on the host and copied once
+    (``True`` is the deprecated name of "hann")."""
     if window_type is True:
         window_type = "hann"
         warnings.warn(
@@ -62,21 +63,28 @@ def build_window(da: LabeledArray, dims, window_type="hann", dtype=None,
             f"Window type {window_type} not supported. Please adhere to "
             "scipy.signal.windows for naming convention."
         )
+    win_func = getattr(sps.windows, window_type)
+    return [telemetry.to_device(
+        np.asarray(win_func(da.sizes[d], sym=False), dtype=np.float64),
+        dtype=dtype, device=device) for d in dims]
+
+
+def build_window(da: LabeledArray, dims, window_type="hann", dtype=None,
+                 device=None) -> LabeledArray:
+    """The separable N-D window over ``dims`` as a LabeledArray, in
+    ``dtype`` (default: the real dtype of ``da``) on ``device`` (default:
+    ``da``'s)."""
     if dims is None:
         dims = list(da.dims)
     elif isinstance(dims, str):
         dims = [dims]
     dtype = real_dtype(da.dtype) if dtype is None else dtype
     device = da.device if device is None else device
-
-    win_func = getattr(sps.windows, window_type)
-    windows = []
-    for d in dims:
-        w = np.asarray(win_func(da.sizes[d], sym=False), dtype=np.float64)
-        coords = {d: da.coords[d]} if d in da.coords else None
-        windows.append(LabeledArray(
-            telemetry.to_device(w, dtype=dtype, device=device), dims=(d,),
-            coords=coords))
+    windows = [
+        LabeledArray(w, dims=(d,),
+                     coords={d: da.coords[d]} if d in da.coords else None)
+        for d, w in zip(dims, window_vectors(da, dims, window_type, dtype,
+                                             device))]
     # outer product in reversed order, as the reference's
     # reduce(operator.mul, windows[::-1])
     return _reduce(operator.mul, windows[::-1])

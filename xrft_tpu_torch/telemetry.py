@@ -14,6 +14,9 @@ Counters (integers since the last :func:`reset`):
   ``host_wait_ns`` is the host's time inside them;
 - ``cufft_plans``: cuFFT plans added to the device's plan cache by the
   ``"torch"`` route's transforms (:func:`cufft`);
+- ``prologue_plain_cuda``: prologues (detrend, window) of CUDA data that
+  kernel K6 did not take and the plain torch ops ran
+  (``detrend.detrend_and_window``);
 - ``spans_dropped``: spans left out because the buffer was full.
 
 :func:`snapshot` returns them with what the package already keeps where it
@@ -45,11 +48,12 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["span", "entry", "to_device", "cufft", "recording", "spans",
+__all__ = ["span", "entry", "count", "to_device", "cufft", "recording",
+           "spans",
            "self_ns", "chrome_events", "snapshot", "reset"]
 
 COUNTERS = ("calls", "host_syncs", "h2d_bytes", "host_wait_ns",
-            "cufft_plans", "spans_dropped")
+            "cufft_plans", "prologue_plain_cuda", "spans_dropped")
 SPAN_LIMIT = 100_000
 
 _lock = threading.Lock()
@@ -82,7 +86,8 @@ _fresh_thread_state()
 os.register_at_fork(after_in_child=_fresh_thread_state)
 
 
-def _count(name: str, n: int = 1) -> None:
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (one of COUNTERS)."""
     with _lock:
         _counts[name] += n
 
@@ -160,7 +165,7 @@ def entry(fn):
         here = _here
         if here.depth:
             return fn(*args, **kwargs)
-        _count("calls")
+        count("calls")
         here.depth = 1
         try:
             with span("call"):
@@ -201,7 +206,7 @@ def cufft(fn, x: torch.Tensor, **kwargs) -> torch.Tensor:
     cache = torch.backends.cuda.cufft_plan_cache[x.device.index]
     before = cache.size
     out = fn(x, **kwargs)
-    _count("cufft_plans", max(cache.size - before, 0))
+    count("cufft_plans", max(cache.size - before, 0))
     return out
 
 
@@ -270,10 +275,11 @@ def chrome_events(base_ns: int = 0) -> list:
 
 
 def _kernels() -> dict:
-    from .ops import binning, dft64, dot, fft_fourstep, mirror
+    from .ops import binning, dft64, dot, fft_fourstep, mirror, prologue
     return {"K1": mirror.mirror_psd, "K2": fft_fourstep.fft_last,
             "K3": binning.binned_sum, "K4": dft64.dft_last, "K5a": dot.dot,
-            "K5b": dot.dot_fold, "K5c": dot.dot_dma}
+            "K5b": dot.dot_fold, "K5c": dot.dot_dma,
+            "K6": prologue.detrend_window}
 
 
 def _table_misses() -> dict:
@@ -290,7 +296,7 @@ def _table_misses() -> dict:
 
 def snapshot() -> dict:
     """The counters since the last :func:`reset`, each kernel's ``launches``
-    (K1-K5c), the table caches' misses since the last reset, and the
+    (K1-K6), the table caches' misses since the last reset, and the
     seconds of each nvcc build of this process (``ops._build``)."""
     from .ops import _build
     with _lock:

@@ -40,15 +40,20 @@ def _check_engine(engine):
     raise ValueError(f"Unknown fft engine {engine!r}")
 
 
-def _run_core(data, axes, kind, engine, pre_shift_axes=(),
+def _run_core(handed, axes, kind, engine, pre_shift_axes=(),
               post_shift_axes=(), post_kind="fftshift"):
     """The core N-D transform (``xrft_tpu/transform.py:30-52``).  An engine
     name runs :mod:`.ops.fft_core` under the ``fft_impl`` it names
     (``config.engine_impl``), which absorbs or applies the shifts itself.  A
     callable ``engine(data, axes, kind)`` is the pencil engine of
     :mod:`.parallel`; it gets explicit shifts here, local on resident axes
-    and one exchange on a sharded one (:mod:`.ops.shards`)."""
+    and one exchange on a sharded one (:mod:`.ops.shards`).  The data come
+    in a one-item list: the ``"fft"`` kind passes it on to
+    :func:`.ops.fft_core.fftn`, which takes them out and converts real data
+    to complex with no other reference to them left (the hp path's float64
+    stack goes before cuFFT allocates); every other route gets the tensor."""
     if callable(engine):
+        data = handed.pop()
         if pre_shift_axes:
             data = shards.ifftshift(data, list(pre_shift_axes))
         out = engine(data, axes, kind)
@@ -57,7 +62,7 @@ def _run_core(data, axes, kind, engine, pre_shift_axes=(),
                 else shards.ifftshift
             out = post(out, list(post_shift_axes))
         return out
-    if shards.is_sharded(data):
+    if shards.is_sharded(handed[0]):
         raise ValueError(
             "sharded data need the pencil engine: call the sharded_* "
             "functions of xrft_tpu_torch.parallel")
@@ -65,7 +70,8 @@ def _run_core(data, axes, kind, engine, pre_shift_axes=(),
           "rfft": fft_core.rfftn, "irfft": fft_core.irfftn}[kind]
     kw = {"post_kind": post_kind} if kind in ("ifft", "irfft") else {}
     with engine_impl(engine):
-        return fn(data, axes, pre_shift_axes=pre_shift_axes,
+        return fn(handed if kind == "fft" else handed.pop(), axes,
+                  pre_shift_axes=pre_shift_axes,
                   post_shift_axes=post_shift_axes, **kw)
 
 
@@ -296,20 +302,11 @@ def fft(
                    for d in dim]
         lag_x = [ce.lag_coord(_dim_coord(da, d)) for d in dim]
 
-    if detrend is not None:
-        from .detrend import detrend as _detrend
-
-        orig_dims = da.dims
-        with telemetry.span("prologue"):
-            da = _detrend(da, dim, detrend_type=detrend)
-        if tuple(da.dims) != tuple(orig_dims):
-            da = da.transpose(*orig_dims)
-
-    if window is not None:
-        from .ops.window import apply_window
+    if detrend is not None or window is not None:
+        from .detrend import detrend_and_window
 
         with telemetry.span("prologue"):
-            _, da = apply_window(da, dim, window_type=window)
+            da = detrend_and_window(da, dim, detrend, window)
 
     data = da.data
     if true_phase:
@@ -326,8 +323,14 @@ def fft(
         post_axes = [a for a, d in zip(axis_num, dim) if d != real_dim]
     else:
         post_axes = axis_num if shift else ()
+    # the data go to the route alone (``_run_core``), so the complex
+    # transform lets the prologue's real output go once it has converted it
+    # (the hp path's float64 stack)
+    in_dims, in_coords, name = da.dims, da.coords, da.name
+    handed = [data]
+    del da, data
     with telemetry.span("fft"):
-        f = _run_core(data, axis_num, "fft" if real_dim is None else "rfft",
+        f = _run_core(handed, axis_num, "fft" if real_dim is None else "rfft",
                       engine, pre_shift_axes=axis_num if true_phase else (),
                       post_shift_axes=post_axes)
 
@@ -340,15 +343,14 @@ def fft(
         # transform dims renamed freq_<d> with frequency coords; all other
         # dims and coords carried through
         swap = {d: ce.freq_dim_name(d, prefix) for d in dim}
-        out_dims = [swap.get(d, d) for d in da.dims]
-        out_coords = {cname: c.copy() for cname, c in da.coords.items()
+        out_dims = [swap.get(d, d) for d in in_dims]
+        out_coords = {cname: c.copy() for cname, c in in_coords.items()
                       if cname not in dim}
         for d, kk in zip(dim, k):
             out_coords[swap[d]] = Coord((swap[d],), kk,
                                         {"spacing": kk[1] - kk[0]}, swap[d])
 
-        daft = LabeledArray(f, dims=out_dims, coords=out_coords,
-                            name=da.name)
+        daft = LabeledArray(f, dims=out_dims, coords=out_coords, name=name)
 
     with telemetry.span("epilogue"):
         if true_phase:
@@ -369,7 +371,7 @@ def fft(
         if true_amplitude:
             daft = daft * float(np.prod(delta_x))
 
-    daft.name = da.name
+    daft.name = name
     return daft.transpose(*[swap.get(d, d) for d in rawdims])
 
 
@@ -577,7 +579,8 @@ def _ifft_resolved(daft: LabeledArray, spacing_tol, dim, real_dim, shift,
         else:
             post_axes, post_kind = (), "fftshift"
 
-        f = _run_core(data, axis_num, "ifft" if real_dim is None else "irfft",
+        f = _run_core([data], axis_num,
+                      "ifft" if real_dim is None else "irfft",
                       engine, pre_shift_axes=axis_shift,
                       post_shift_axes=post_axes, post_kind=post_kind)
 
