@@ -10,7 +10,15 @@ them fftshifted, as a user's spectrum is stored).  Calls alternate the
 stacks; a mix with ``fields_per_call`` walks each stack in blocks of that
 many fields.  Strings ``{space}``, ``{freq_space}`` and ``{freq_last}`` in
 the mix's kwargs stand for the configuration's two trailing dims, their
-frequency names and the last of these.
+frequency names and the last of these; a mix may also name its dims
+literally.
+
+A mix that names a ``mesh`` runs across ranks (:func:`make_sharded`): each
+rank makes only its own block of each stack, from slabs of one index along
+the first sharded dim, each slab drawn by a generator seeded from (seed,
+stack, slab).  The global array is a function of the seed alone, so 1, 2 and
+4 ranks hold the same data bit for bit, and any rank can make any slab
+again for the reference.
 """
 
 from __future__ import annotations
@@ -126,3 +134,92 @@ def make(config: dict, mix: dict, seed: int, device) -> Inputs:
                          f"of {shape[0]}")
     return Inputs(stacks, dims, coords,
                   resolve_kwargs(mix["kwargs"], space), fields)
+
+
+def chunk_range(n: int, parts: int, r: int) -> tuple:
+    """[start, stop) of block r of an axis of extent n cut into ``parts``
+    as ``torch.distributed.tensor.Shard`` cuts it (``torch.chunk``)."""
+    c = -(-n // parts)
+    start = min(r * c, n)
+    return start, min(start + c, n)
+
+
+def slab_seed(seed: int, stack: int, k: int) -> int:
+    """The generator seed of slab ``k`` of stack ``stack``: 63 bits of
+    numpy's SeedSequence over (seed, stack, k), so every slab draws apart
+    and no rank count changes it."""
+    words = np.random.SeedSequence([int(seed) % 2 ** 64, stack, k]) \
+        .generate_state(2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
+@dataclass
+class ShardedInputs:
+    """A rank's share of a sharded cell's inputs."""
+    stacks: list               # this rank's block of each of the two stacks
+    shape: tuple               # the global array's
+    dims: tuple
+    coords: dict               # name -> numpy array over the global array
+    kwargs: dict
+    dim_shards: dict           # dim -> mesh axis
+    slab_axis: int             # the axis the slabs cut
+    seed: int
+    law: dict                  # the configuration's field: mean, std
+    dtype: torch.dtype
+    device: object
+
+    @property
+    def fields(self) -> int:
+        """Fields a call takes: the lead dim of the global array."""
+        return self.shape[0]
+
+    def args(self, i: int):
+        """(this rank's block, the global coordinates) of call ``i``."""
+        return self.stacks[i % 2], self.coords
+
+    def slab(self, stack: int, k: int) -> torch.Tensor:
+        """Index ``k`` along the slab axis of the global array of stack
+        ``stack``: the global shape less that axis, made again from the
+        seed on this rank's device."""
+        shape = self.shape[:self.slab_axis] + self.shape[self.slab_axis + 1:]
+        g = _generator(slab_seed(self.seed, stack, k), self.device)
+        return _field(shape, self.law, g, self.device, self.dtype)
+
+
+def make_sharded(config: dict, mix: dict, seed: int, device,
+                 mesh_sizes: dict, position: dict) -> ShardedInputs:
+    """This rank's inputs of a cell whose mix names ``mesh`` and
+    ``dim_shards``: ``mesh_sizes`` is {mesh axis: size}, ``position``
+    this rank's index on each mesh axis."""
+    if mix["input"] != "field" or mix.get("fields_per_call"):
+        raise ValueError("a sharded mix takes the whole field stack a call "
+                         "(input 'field', fields_per_call null)")
+    shape = tuple(config["shape"])
+    dims = tuple(config["dims"])
+    dim_shards = dict(mix["dim_shards"])
+    unknown = set(dim_shards) - set(dims)
+    if unknown or set(dim_shards.values()) - set(mesh_sizes):
+        raise ValueError(f"dim_shards {dim_shards} name dims or mesh axes "
+                         f"that {dims} and the mesh {mesh_sizes} lack")
+    ranges = [(0, n) for n in shape]
+    for d, m in dim_shards.items():
+        a = dims.index(d)
+        ranges[a] = chunk_range(shape[a], mesh_sizes[m], position[m])
+    slab_axis = min(dims.index(d) for d in dim_shards)
+    coords = {d: coordinate(config["coords"][d], n)
+              for d, n in zip(dims, shape)}
+    ins = ShardedInputs([], shape, dims, coords,
+                        resolve_kwargs(mix["kwargs"], list(dims[-2:])),
+                        dim_shards, slab_axis, seed,
+                        config["field"], getattr(torch, config["dtype"]),
+                        device)
+    lo, hi = ranges[slab_axis]
+    cut = tuple(slice(a, b) for a, b in ranges[:slab_axis]
+                + ranges[slab_axis + 1:])
+    local = tuple(b - a for a, b in ranges)
+    for s in range(2):
+        block = torch.empty(local, dtype=ins.dtype, device=device)
+        for k in range(lo, hi):
+            block.select(slab_axis, k - lo).copy_(ins.slab(s, k)[cut])
+        ins.stacks.append(block)
+    return ins

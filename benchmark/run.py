@@ -29,6 +29,7 @@ CACHE = ROOT / ".bench_cache"
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 
 
@@ -41,9 +42,10 @@ def parse(argv):
     return p.parse_args(argv)
 
 
-def main(argv=None, root: Path = ROOT, make_device=None) -> int:
-    """Run one cell; ``root`` and ``make_device`` (chips -> device) are for
-    the harness's tests, which run tiny cells on the CPU."""
+def main(argv=None, root: Path = ROOT, make_device=None, launch=None) -> int:
+    """Run one cell; ``root``, ``make_device`` (chips -> device) and
+    ``launch`` (``harness.ranks.Launch``, for a cell whose mix names a
+    mesh) are for the harness's tests, which run tiny cells on the CPU."""
     args = parse(argv)
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
@@ -53,19 +55,14 @@ def main(argv=None, root: Path = ROOT, make_device=None) -> int:
     marks = [("python, torch and the harness", time.perf_counter())]
 
     cell = cells.load(root, args.workload, bench=root / BENCH.name)
-    if str(ROOT) not in sys.path:
-        sys.path.insert(1, str(ROOT))
+    if "mesh" in cell.mix:
+        return _ranks(cell, args, root, launch, marks)
     try:
-        import xrft_tpu_torch as xt
-    except ImportError as e:
-        runner.log(f"this checkout holds no xrft_tpu_torch ({e})")
+        xt = runner.load_port(ROOT)
+    except runner.PortMissing as e:
+        runner.log(str(e))
         return 3
     marks.append(("xrft_tpu_torch", time.perf_counter()))
-    where = Path(xt.__file__).resolve()
-    if ROOT not in where.parents:
-        runner.log(f"xrft_tpu_torch was loaded from {where}, not from this "
-                   f"checkout ({ROOT})")
-        return 3
     try:
         dev = (make_device or device.Cuda)(cell.chips)
     except device.NoCard as e:
@@ -79,10 +76,46 @@ def main(argv=None, root: Path = ROOT, make_device=None) -> int:
         runner.log(f"the run loaded {found}: nothing it runs may import JAX "
                    f"or the JAX package")
         return 4
+    _report(result, checks, runner.log)
+    return 0
+
+
+def _report(result: dict, checks: dict, log) -> None:
+    """The result line, its checks last, and the checks as the last lines
+    of standard error."""
     result["checks"] = checks
     print(json.dumps(result), flush=True)
     for name, c in checks.items():
-        runner.log(f"check {name} = {c['value']!r} (limit {c['limit']!r})")
+        log(f"check {name} = {c['value']!r} (limit {c['limit']!r})")
+
+
+def _ranks(cell, args, root: Path, launch, marks) -> int:
+    """A cell whose mix names a mesh: one rank per card (``harness/ranks``),
+    rank 0's result printed here once every rank has exited 0."""
+    from harness import device, ranks, runner
+
+    opts = launch or ranks.Launch()
+    world = math.prod(cell.mix["mesh"].values())
+    if world != cell.chips:
+        runner.log(f"the mesh {cell.mix['mesh']} has {world} ranks; the "
+                   f"cell asks for {cell.chips} chips")
+        return 2
+    try:
+        rc, out = ranks.launch(
+            runner.run_rank, (ROOT, root, cell.name, args.seed,
+                              args.seconds, bool(args.trace), T0, marks,
+                              opts.wrap), world, opts, runner.log)
+    except device.NoCard as e:
+        runner.log(str(e))
+        return 2
+    if rc:
+        return rc
+    found = runner.forbidden_modules()
+    if found:
+        runner.log(f"the launcher loaded {found}: nothing it runs may "
+                   f"import JAX or the JAX package")
+        return 4
+    _report(*out, runner.log)
     return 0
 
 
