@@ -61,9 +61,11 @@ PyTorch version on the card, and drives four paths at full width:
     values, and the flagship's prologue time;
   * K6, the detrend-and-window prologue (phase 29): its registers and
     spills as ptxas reports them, K6 against its plain version in float32
-    and float64, and its time on the flagship and GLORYS12 stacks of 64
-    fields in float32 and the flagship's in float64, beside its bound and
-    the plain version.
+    and float64 over two axes and three, and its time on the flagship and
+    GLORYS12 stacks of 64 fields in float32, the flagship's in float64 and
+    one rank's 512 x 2048^2 slab of the dns-2048 cube over (z, y, x),
+    beside its bound and the plain version, each timed stack also held to
+    the plain version's output.
 
 ``python3 chip_smoke.py --prologue`` times the flagship and its prologue
 alone (phase 28's timing), for the package beside the script;
@@ -2240,15 +2242,42 @@ def prologue_only():
 # ---- phase 29: K6, the detrend-and-window prologue ------------------------
 
 # K6 held to its plain version at these shapes (the flagship's rows at 8
-# fields, an odd ragged row), then timed on the benchmark's stacks: the
-# flagship and GLORYS12 in float32, the flagship in float64 (the hp path);
-# and on few long rows (8 series of 2^22 values, cut into chunks of 8192)
-K6_CHECK_SHAPES = ((8, 4096, 4096), (3, 257, 1001))
-K6_SHAPES = (((64, 4096, 4096), torch.float32),
-             ((64, 2041, 4320), torch.float32),
-             ((64, 4096, 4096), torch.float64),
-             ((8, 1, 1 << 22), torch.float32))
+# fields, an odd ragged row, a stack of 128 planes over three axes), then
+# timed on the benchmark's stacks: the flagship and GLORYS12 in float32, the
+# flagship in float64 (the hp path); on few long rows (8 series of 2^22
+# values, cut into chunks of 8192); and on one rank's slab of the dns-2048
+# cell over (z, y, x)
+K6_CHECK_SHAPES = (((8, 4096, 4096), ["y", "x"]),
+                   ((3, 257, 1001), ["y", "x"]),
+                   ((1, 128, 512, 512), ["z", "y", "x"]))
+K6_SHAPES = (((64, 4096, 4096), torch.float32, ["y", "x"]),
+             ((64, 2041, 4320), torch.float32, ["y", "x"]),
+             ((64, 4096, 4096), torch.float64, ["y", "x"]),
+             ((8, 1, 1 << 22), torch.float32, ["y", "x"]),
+             ((1, 512, 2048, 2048), torch.float32, ["z", "y", "x"]))
 K6_LIMIT = {torch.float32: 2.0 ** -22, torch.float64: 1e-13}
+
+
+def k6_labeled(xt, data):
+    """``labeled`` for a (time, y, x) stack; a (component, z, y, x) one with
+    the same spacing."""
+    if data.ndim == 3:
+        return labeled(xt, data)
+    dims = ("component", "z", "y", "x")
+    return xt.LabeledArray(data, dims=dims, coords={
+        d: np.arange(n) * 0.5 for d, n in zip(dims[1:], data.shape[1:])})
+
+
+def blocked_rel_err(got, ref, block=1 << 26) -> float:
+    """``rel_err`` a block of values at a time: no temporary of the whole
+    stack."""
+    g, r = got.reshape(-1), ref.reshape(-1)
+    err = top = 0.0
+    for k in range(0, r.numel(), block):
+        err = max(err, (g[k:k + block].to(r.dtype) - r[k:k + block]).abs()
+                  .max().item())
+        top = max(top, r[k:k + block].abs().max().item())
+    return err / top
 
 
 def k6_ptxas(build) -> list:
@@ -2270,8 +2299,10 @@ def k6_phase(xt, build, card):
     """Phase 29: K6 (``csrc/prologue.cu``) through
     ``detrend.detrend_and_window`` against ``detrend_and_window_plain``:
     float32 and float64, constant and linear, hann and no window, SST in
-    kelvin, within K6_LIMIT of the plain output's max, two calls bit for
-    bit, three launches a call.  Then K6_SHAPES' linear hann prologue back
+    kelvin, over two axes and three, within K6_LIMIT of the plain output's
+    max, two calls bit for bit, three launches a call.  Then K6_SHAPES'
+    linear hann prologue of SST in kelvin, held within K6_LIMIT of the
+    plain version's, and timed back
     to back between CUDA events, the kernel alone (``ms``) and the whole
     prologue (``call_ms``: the window's factors made on the host and
     copied, which blocks), beside the plain version, the bound (the stack
@@ -2290,17 +2321,16 @@ def k6_phase(xt, build, card):
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
               for ln in lines if "spill" in ln),
           "K6: a kernel spills registers")
-    for shape in K6_CHECK_SHAPES:
+    for shape, dims in K6_CHECK_SHAPES:
         for dtype in (torch.float32, torch.float64):
-            da = labeled(xt, 290 + 2 * field(shape, 29, dtype))
+            da = k6_labeled(xt, 290 + 2 * field(shape, 29, dtype))
             for kind in ("constant", "linear"):
                 for window in ("hann", None):
                     n0 = prologue.detrend_window.launches
-                    got = det.detrend_and_window(da, ["y", "x"], kind, window)
-                    again = det.detrend_and_window(da, ["y", "x"], kind,
-                                                   window)
+                    got = det.detrend_and_window(da, dims, kind, window)
+                    again = det.detrend_and_window(da, dims, kind, window)
                     n = prologue.detrend_window.launches - n0
-                    ref = det.detrend_and_window_plain(da, ["y", "x"], kind,
+                    ref = det.detrend_and_window_plain(da, dims, kind,
                                                        window)
                     torch.cuda.synchronize()
                     err = rel_err(got.data, ref.data)
@@ -2316,9 +2346,10 @@ def k6_phase(xt, build, card):
                     del got, again, ref
             del da
     rows = []
-    for shape, dtype in K6_SHAPES:
-        da = labeled(xt, field(shape, 29, dtype))
-        args = (da, ["y", "x"], "linear", "hann")
+    for shape, dtype, dims in K6_SHAPES:
+        # SST in kelvin, as above: the float64 moments matter there
+        da = k6_labeled(xt, field(shape, 29, dtype).mul_(2).add_(290))
+        args = (da, dims, "linear", "hann")
 
         def k6():
             return det.detrend_and_window(*args)
@@ -2328,13 +2359,21 @@ def k6_phase(xt, build, card):
 
         # the kernel alone: its plan and the window's factors made once
         x = da.data
-        p = prologue.plan(x.shape, x.shape, (1, 2), True, {1: 0, 2: 0})
-        wy, wx = window_vectors(da, ["y", "x"], "hann", dtype, x.device)
+        axes = tuple(da.get_axis_num(d) for d in dims)
+        p = prologue.plan(x.shape, x.shape, axes, True, {a: 0 for a in axes})
+        w = dict(zip(axes, window_vectors(da, dims, "hann", dtype,
+                                          x.device)))
+        nd = x.ndim
 
         def kernel():
-            return prologue.detrend_window(x, p, wy, wx)
+            return prologue.detrend_window(x, p, wz=w.get(nd - 3),
+                                           wy=w[nd - 2], wx=w[nd - 1])
 
-        err = rel_err(k6().data, plain().data)
+        got = k6().data
+        err = blocked_rel_err(got, plain().data)
+        del got
+        check(err <= K6_LIMIT[dtype], f"K6 {shape} {dtype} linear hann: "
+              f"rel err {err:.3e} vs plain")
         t_kernel = event_ms(kernel, runs=10, warmup=2, batch=3)
         t_k6 = event_ms(k6, runs=10, warmup=2, batch=3)
         t_plain = event_ms(plain, runs=5, warmup=1, batch=2)
@@ -2352,7 +2391,7 @@ def k6_phase(xt, build, card):
             f"GB/s of its own traffic); the whole prologue (the window's "
             f"factors made and copied) {t_k6:.3f} ms, plain {t_plain:.3f} "
             f"ms; device {dev:.3f} ms; rel err vs plain {err:.3e} [{card}]")
-        del da, x, wy, wx
+        del da, x, w
     return rows
 
 

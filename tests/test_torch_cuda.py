@@ -621,6 +621,38 @@ def test_one_rank_nccl_sharded_psd(cuda, impl):
         dist.destroy_process_group()
 
 
+def test_one_rank_nccl_sharded_psd3d(cuda):
+    """The dns-2048 cell's call at a small size on one card: a 3-D PSD over
+    (z, y, x) with z sharded over a one-rank NCCL group; K6 takes the
+    slab's prologue over its three axes (three launches, its four moments
+    summed through NCCL), and the result equals the unsharded PSD."""
+    import torch.distributed as dist
+
+    from xrft_tpu_torch.parallel import make_mesh, sharded_power_spectrum
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh({"fp": 1})
+        g = torch.Generator(device=cuda).manual_seed(27)
+        x = 290 + 2 * torch.randn((1, 64, 96, 128), generator=g, device=cuda)
+        da = LabeledArray(x, ("component", "z", "y", "x"),
+                          coords={d: np.arange(n) * 1.0 for d, n in
+                                  zip("zyx", x.shape[1:])})
+        kw = dict(dim=["z", "y", "x"], window="hann", detrend="linear")
+        ref = power_spectrum(da, **kw)
+        k6 = prologue.detrend_window.launches
+        got = sharded_power_spectrum(da, mesh, {"z": "fp"}, **kw)
+        torch.cuda.synchronize()
+        assert prologue.detrend_window.launches == k6 + 3
+        assert got.data.to_local().shape == ref.data.shape
+        assert _rel(got.data.to_local(), ref.data) <= 2e-6
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("mirror_impl", ["kernel", "plain"])
 def test_one_rank_nccl_sharded_2d_roundtrip(cuda, mirror_impl):
     """A 2-D field with y sharded on a one-rank NCCL group: the chain takes
@@ -701,13 +733,17 @@ def _k6_field(cuda, data, shape, seed):
 
 # shape, detrend dims: the flagship's and GLORYS12's rows, an odd ragged
 # row, a detrend over the trailing axis alone, and few long rows, which K6
-# cuts into chunks of 8192 (128 and 65 a row)
+# cuts into chunks of 8192 (128 and 65 a row); over three axes (z, y, x)
+# in two orders, and with rows cut into three chunks
 K6_CASES = {"4096": ((2, 4096, 4096), ["y", "x"]),
             "2041x4320": ((2, 2041, 4320), ["y", "x"]),
             "257x1001": ((3, 257, 1001), ["y", "x"]),
             "rows-1001": ((3, 257, 1001), "x"),
             "long-rows": ((2, 4, 1 << 20), "x"),
-            "long-2d": ((1, 3, (1 << 19) + 7), ["y", "x"])}
+            "long-2d": ((1, 3, (1 << 19) + 7), ["y", "x"]),
+            "3d": ((2, 48, 256, 384), ["z", "y", "x"]),
+            "3d-xzy": ((2, 48, 256, 384), ["x", "z", "y"]),
+            "3d-long": ((1, 3, 5, 20011), ["z", "y", "x"])}
 
 
 @pytest.mark.parametrize("window", ["hann", "tukey", None])
@@ -723,9 +759,11 @@ def test_k6_matches_plain(cuda, dtype, case, data, kind, window):
     det = importlib.import_module("xrft_tpu_torch.detrend")
     shape, dims = K6_CASES[case]
     x = _k6_field(cuda, data, shape, 18).to(dtype)
-    da = LabeledArray(x, ("time", "y", "x"),
-                      coords={"y": np.arange(shape[1]) * 0.5,
-                              "x": np.arange(shape[2]) * 0.5},
+    names = ("time", "z", "y", "x") if len(shape) == 4 \
+        else ("time", "y", "x")
+    da = LabeledArray(x, names,
+                      coords={d: np.arange(n) * 0.5
+                              for d, n in zip(names[1:], shape[1:])},
                       name="sst", attrs={"units": "K"})
     before = prologue.detrend_window.launches
     got = det.detrend_and_window(da, dims, kind, window)

@@ -1007,6 +1007,28 @@ def test_dns_cell_call_against_the_plain_reference(pool4):
     assert res[0]["dtype"] == "torch.float32"
 
 
+def test_dns_cell_call_through_k6s_plan(pool4):
+    """The cell's call with the prologue on K6's route, its launches
+    replayed on the host (``k6_replay.py``): each rank's plan of its z
+    slab, the window's stretch of z, the four moments summed over the ranks
+    in the detrend's one all_reduce; three launches a rank, the exchanges
+    of the plain route, and the spectrum against the benchmark's streamed
+    reference, plane by plane along freq_z."""
+    _, spec = dns_cube()
+    res = pool4.run(fn="sharded_power_spectrum", mesh="fp", arrays=[spec],
+                    dim_shards={"z": "fp"}, kwargs=DNS_KW, k6=True)
+    x = spec["values"]
+    for me, r in enumerate(res):
+        count, sent = _dns_exchanges(x.shape, 4, me)
+        assert r["k6_launches"] == 3, me
+        assert r["counted"] == {"calls": 1, "exchanges": count,
+                                "exchange_bytes": sent}, me
+    want = np.stack([dns_plane(x, {0: 0, 1: k})
+                     for k in range(x.shape[1])])[None]
+    assert_values(res[0]["value"], want, DNS_TOL)
+    assert_layout(res, {1: "fp"})
+
+
 def _sent_by_take(index, n, parts, me, row_bytes):
     """Bytes rank ``me`` sends in ``ops.shards.take`` of an axis of ``n``
     split over ``parts`` ranks by the host ``index``: the rows it owns of

@@ -2,7 +2,7 @@
 on the CPU: which stacks kernel K6 takes (``detrend.k6_takes``), the plain
 version the CPU runs (``detrend`` followed by ``apply_window``, bit for bit
 and in metadata), and K6's arithmetic replayed in torch on the host
-(:func:`k6_replay`) through the wrapper's plan and metadata, against the
+(``k6_replay.py``) through the wrapper's plan and metadata, against the
 plain version.  The kernel itself runs on the card only
 (``test_torch_cuda.py::test_k6_matches_plain``).
 """
@@ -19,6 +19,7 @@ import xrft_tpu_torch as xt
 from xrft_tpu_torch.ops import prologue
 from xrft_tpu_torch.ops.window import apply_window
 
+from k6_replay import install
 from test_torch_detrend_far import CASES, DIMS, field
 from torch_parity import pair
 
@@ -42,7 +43,14 @@ COORDS = {"z": np.arange(6) * 3.0, "y": np.arange(40) * 0.25,
     (F32, "cpu", (3, 40, 64), (1, 2), "linear", "hann", True, False),
     (F32, "cuda", (3, 40, 64), (1,), "linear", "hann", True, False),
     (F32, "cuda", (3, 40, 64), (0, 1), "linear", "hann", True, False),
-    (F32, "cuda", (3, 40, 64), (0, 1, 2), "linear", None, True, False),
+    (F32, "cuda", (3, 40, 64), (0, 1, 2), "linear", None, True, True),
+    (F32, "cuda", (1, 512, 2048, 2048), (1, 2, 3), "linear", "hann", True,
+     True),
+    (F64, "cuda", (2, 48, 256, 384), (3, 1, 2), "constant", None, True,
+     True),
+    (F32, "cuda", (2, 48, 256, 384), (0, 1, 2), "linear", "hann", True,
+     False),
+    (F32, "cuda", (2, 3, 40, 64), (0, 1, 2, 3), "linear", None, True, False),
     (F32, "cuda", (3, 40, 64), (0, 2), "constant", None, True, False),
     (F32, "cuda", (3, 40, 64), (1, 2), None, "hann", True, False),
     (F32, "cuda", (3, 40, 64), (1, 2), "linear", "no-such", True, False),
@@ -62,8 +70,9 @@ COORDS = {"z": np.arange(6) * 3.0, "y": np.arange(40) * 0.25,
 def test_which_stacks_k6_takes(dtype, device, shape, axes, kind, window,
                                contig, takes):
     """Real float32/float64 CUDA data, contiguous and not empty; a constant
-    or linear detrend over the trailing axis or the two trailing axes, in
-    either order; any window or none.  Nothing else."""
+    or linear detrend over the trailing axis or the two or three trailing
+    axes, in any order; any window or none.  Nothing else: not three
+    leading axes, not four."""
     assert det.k6_takes(dtype, device, shape, axes, kind, window,
                         contig) is takes
 
@@ -105,66 +114,29 @@ def test_the_cpu_prologue_is_detrend_then_window(dtype, name, kind, ndim,
     assert_identical(got, want)
 
 
-def k6_replay(x, p, wy=None, wx=None, reduce=None):
-    """K6's arithmetic in torch on the host, for
-    :func:`~xrft_tpu_torch.ops.prologue.detrend_window`'s arguments: the
-    moments in float64 in another order than the plain version's, then, per
-    value, the kernel's float64 operations in its order, each rounded on
-    its own, one rounding to x's dtype, and the window's product in it."""
-    v = x.reshape(p.batch, p.ny, p.nx).double()
-    ci = p.cy0 + torch.arange(p.ny, dtype=F64)[:, None]
-    cj = p.cx0 + torch.arange(p.nx, dtype=F64)
-    rows = v.sum(2, keepdim=True)
-    mom = torch.stack([rows.sum((1, 2)), (rows * ci).sum((1, 2)),
-                       (v * cj).sum((1, 2))])
-    if reduce is not None:
-        reduce(mom)
-    mean = (mom[0] / p.n_el)[:, None, None]
-    zero = torch.zeros_like(mean)
-    ay = (mom[1] / p.css_y)[:, None, None] if p.parts in (1, 3, 4) else zero
-    ax = (mom[2] / p.css_x)[:, None, None] if p.parts >= 2 else zero
-    ty, tx = ay * ci, ax * cj
-    d = {0: lambda: v - mean,
-         1: lambda: v - (mean + ty),
-         2: lambda: v - (mean + tx),
-         3: lambda: (v - (mean + ty)) - tx,
-         4: lambda: (v - (mean + tx)) - ty}[p.parts]()
-    r = d.to(x.dtype)
-    if wx is not None:
-        r = r * (wx if wy is None else wy[:, None] * wx)
-    prologue.detrend_window.launches += 3
-    return r.reshape(x.shape)
-
-
 @pytest.fixture
 def replay(monkeypatch):
     """A switch to K6's route on the CPU: ``k6_takes`` asked as for a CUDA
-    tensor, and the kernel's launch replaced by :func:`k6_replay`."""
-    real = det.k6_takes
-
-    def on():
-        monkeypatch.setattr(det, "k6_takes",
-                            lambda dtype, device, *a: real(dtype, "cuda", *a))
-        monkeypatch.setattr(prologue, "detrend_window", k6_replay)
-        k6_replay.launches = 0
-        return k6_replay
-
-    return on
+    tensor, and the kernel's launch replaced by ``k6_replay``."""
+    return lambda: install(monkeypatch.setattr)
 
 
 FAR = ["counts", "sst", "pressure"]
 
 
 @pytest.mark.parametrize("window", [None, "hann", True])
-@pytest.mark.parametrize("dims", ["x", ("y", "x"), ("x", "y")])
+@pytest.mark.parametrize("dims", ["x", ("y", "x"), ("x", "y"),
+                                  ("z", "y", "x"), ("x", "z", "y"),
+                                  ("y", "x", "z")])
 @pytest.mark.parametrize("kind", ["constant", "linear"])
-@pytest.mark.parametrize("shape", [SHAPE, (3, 1, 33), (2, 7, 1)])
+@pytest.mark.parametrize("shape", [SHAPE, (3, 1, 33), (2, 7, 1), (1, 9, 17)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("name", FAR)
 def test_k6s_arithmetic_is_the_plain_versions(replay, name, dtype, shape,
                                               kind, dims, window):
     """The wrapper's plan and metadata, with the kernel's arithmetic
-    replayed, against the plain version: bit for bit where every moment
+    replayed, against the plain version, over one, two or three axes in
+    any order, a length-1 axis among them: bit for bit where every moment
     sums exactly (12-bit counts), else within 2^-22 (float32) or 1e-13
     (float64) of the plain result's largest |value|; the same metadata
     either way, and three launches."""
@@ -220,13 +192,46 @@ def test_rows_are_cut_only_where_too_few_fill_the_card(rows, nx, want):
 
 def test_plan_of_a_sharded_block():
     """The centred coordinates of a block start at its global offset; the
-    count and sums of squares are the whole field's."""
+    count and sums of squares are the whole field's; over two axes and
+    over three, z split."""
     p = prologue.plan((4, 32, 48), (4, 16, 48), (1, 2), True, {1: 16, 2: 0})
-    assert (p.batch, p.ny, p.nx, p.parts) == (4, 16, 48, 3)
+    assert (p.batch, p.ny, p.nx, p.order) == (4, 16, 48, 2 | 3 << 2)
     assert (p.cy0, p.cx0) == (16 - 15.5, -23.5)
     assert p.n_el == 32 * 48
     c = np.arange(32) - 15.5
     assert p.css_y == float(np.sum(c ** 2)) * 48
     q = prologue.plan((5, 9), (5, 9), (1,), False, {1: 0})
-    assert (q.batch, q.ny, q.nx, q.parts, q.cy0) == (5, 1, 9, 0, 0.0)
+    assert (q.batch, q.ny, q.nx, q.order, q.cy0) == (5, 1, 9, 0, 0.0)
     assert q.css_x == q.css_y == 0.0
+    # the dns-2048 slab: z split over four ranks, this the third
+    s = prologue.plan((1, 2048, 2048, 2048), (1, 512, 2048, 2048),
+                      (1, 2, 3), True, {1: 1024, 2: 0, 3: 0})
+    assert (s.batch, s.nz, s.ny, s.nx, s.naxes) == (1, 512, 2048, 2048, 3)
+    assert (s.cz0, s.cy0, s.cx0) == (1024 - 1023.5, -1023.5, -1023.5)
+    assert s.n_el == 2048.0 ** 3
+    c = np.arange(2048) - 1023.5
+    assert s.css_z == s.css_y == s.css_x == float(np.sum(c ** 2)) * 2048 ** 2
+    assert (s.order, s.wlast) == (1 | 2 << 2 | 3 << 4, 0)
+    # any order, a length-1 axis left out of the fit, the window's last
+    # factor that of the first axis
+    t = prologue.plan((4, 1, 6, 8), (4, 1, 3, 8), (3, 1, 2), True,
+                      {3: 0, 1: 0, 2: 3})
+    assert (t.batch, t.nz, t.ny, t.nx, t.cy0) == (4, 1, 3, 8, 3 - 2.5)
+    assert (t.order, t.wlast, t.css_z, t.n_el) == (3 | 2 << 2, 2, 0.0, 48.0)
+
+
+@pytest.mark.parametrize("shape,axes,linear,parts", [
+    ((4, 6, 8), (1, 2), True, 3),
+    ((4, 6, 8), (2, 1), True, 4),
+    ((4, 6, 8), (1, 2), False, 0),
+    ((4, 1, 8), (1, 2), True, 2),
+    ((4, 6, 1), (2, 1), True, 1),
+    ((4, 8), (1,), True, 2),
+    ((4, 8), (1,), False, 0),
+])
+def test_two_axis_kernel_code_of_each_order(shape, axes, linear, parts):
+    """The two-axis apply kernel's trend code, derived from the plan's
+    fitted order: 1 the row's slope, 2 the column's, 3 the row's first, 4
+    the column's first, length-1 axes left out of the fit."""
+    p = prologue.plan(shape, shape, axes, linear, {a: 0 for a in axes})
+    assert prologue._PARTS[p.order] == parts

@@ -9,11 +9,12 @@
 // is ``detrend.py::_detrended`` followed by ``ops/window.py::apply_window``.
 //
 // Layout: x[B, NY, NX] contiguous, T = float or double: B fields of NY rows
-// of NX values (NY = 1 for a detrend over the trailing axis alone).  The
-// block may be one rank's stretch of a sharded field: row i and column j sit
-// at the centred coordinates
+// of NX values (NY = 1 for a detrend over the trailing axis alone); over
+// three trailing axes x[B, NZ, NY, NX], each field NZ planes of NY rows, the
+// same rows to the passes.  The block may be one rank's stretch of a sharded
+// field: plane k, row i and column j sit at the centred coordinates
 //
-//   c_i = cy0 + i,  c_j = cx0 + j,  cy0 = lo_y - (GY - 1)/2,  cx0 = lo_x - (GX - 1)/2,
+//   c_k = cz0 + k,  c_i = cy0 + i,  c_j = cx0 + j,  c?0 = lo_? - (G? - 1)/2,
 //
 // half-integers, exact in double and computed from the index, so no
 // coordinate vector is read.
@@ -24,15 +25,24 @@
 //      from zero are biased on the card); part[row, chunk] = (R, W).
 //   2. moments_fields, the tiny stage: one group of threads per field sums
 //      its partials in a fixed order, S = sum R, Y = sum c_i R, X = sum W,
-//      into mom[3, B].  No atomics: the same input gives the same bits.
-//      (A sharded block's mom is summed over the ranks between 2 and 3.)
+//      into mom[3, B]; over three axes moments_fields3 adds Z = sum c_k R,
+//      into mom[4, B], one cluster of 8 blocks a field (a 2048^2 plane of
+//      rows gives a million partials: one block would read them serially),
+//      the blocks' sums added in rank order through distributed shared
+//      memory.  No atomics: the same input gives the same bits.  (A
+//      sharded block's mom is summed over the ranks between 2 and 3.)
 //   3. apply: one warp per (row, chunk) reads its values again and writes
 //      the FFT's input once,
 //        mean = S / n, a_y = Y / css_y, a_x = X / css_x,
 //        out  = round_T( round_T(x - trend) * round_T(wy[i] * wx[j]) ),
 //      the trend subtracted in double in the plain path's parts and order
-//      (``parts``): 0 x - mean; 1 x - (mean + a_y c_i); 2 x - (mean + a_x c_j);
+//      (``parts``, which ``ops/prologue.py::_PARTS`` derives from the plan's
+//      fitted order): 0 x - mean; 1 x - (mean + a_y c_i); 2 x - (mean + a_x c_j);
 //      3 (x - (mean + a_y c_i)) - a_x c_j; 4 (x - (mean + a_x c_j)) - a_y c_i.
+//      Over three axes (apply3) the fitted axes come in any order, the first
+//      part with the mean (Trend3), and the window's factor is the plain
+//      path's product of the three 1-D factors, the last two of the
+//      transform's dims first: round_T(round_T(w_b w_c) w_a).
 //      Every operation rounds on its own (no FMA contraction), so only the
 //      order of the moments' float64 sums differs from the plain version.
 //
@@ -49,6 +59,7 @@
 // align with the data: each was worth 2-3% of its time on an H100, where it
 // then ran at 94% of the speed of a device-to-device copy of the stack.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -204,6 +215,79 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Over three axes: one cluster of kCluster blocks per field.  Thread g of
+// the cluster takes the field's rows g, g + G, g + 2G, ... (G its threads),
+// carrying (plane, row) along without a division.
+constexpr int kCluster = 8;
+constexpr int kFieldThreads = 1024;
+
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kFieldThreads)
+    moments_fields3_kernel(const double2* __restrict__ part,
+                           double* __restrict__ mom, long long B, int NZ,
+                           int NY, int nchunks, double cz0, double cy0) {
+  constexpr int kW = kFieldThreads / 32;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const long long b = blockIdx.x / kCluster;
+  const long long rows = (long long)NZ * NY;
+  const double2* q = part + b * rows * nchunks;
+  constexpr long long G = (long long)kCluster * kFieldThreads;
+  long long r = (long long)rank * kFieldThreads + threadIdx.x;
+  long long k = r / NY;
+  int i = (int)(r - k * NY);
+  const long long dk = G / NY;
+  const int di = (int)(G - dk * NY);
+  double s = 0.0, y = 0.0, xs = 0.0, z = 0.0;
+  for (; r < rows; r += G) {
+    double R = 0.0, W = 0.0;
+    for (int c = 0; c < nchunks; ++c) {
+      const double2 v = q[r * nchunks + c];
+      R = dadd(R, v.x);
+      W = dadd(W, v.y);
+    }
+    s = dadd(s, R);
+    y = __fma_rn(cy0 + (double)i, R, y);
+    xs = dadd(xs, W);
+    z = __fma_rn(cz0 + (double)k, R, z);
+    k += dk;
+    i += di;
+    if (i >= NY) {
+      i -= NY;
+      ++k;
+    }
+  }
+  __shared__ double acc[4][kW];
+  __shared__ double sums[4];
+  const double v[4] = {warp_sum(s), warp_sum(y), warp_sum(xs), warp_sum(z)};
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) acc[m][threadIdx.x >> 5] = v[m];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      double t = acc[m][0];
+      for (int w = 1; w < kW; ++w) t = dadd(t, acc[m][w]);
+      sums[m] = t;
+    }
+  }
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    double t[4] = {sums[0], sums[1], sums[2], sums[3]};
+    for (unsigned c = 1; c < kCluster; ++c) {
+      const double* o = cluster.map_shared_rank(sums, c);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) t[m] = dadd(t[m], o[m]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) mom[m * B + b] = t[m];
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its sums
+}
+
 // x's value less the trend, rounded to T, in the plain version's parts.
 struct Trend {
   int parts;
@@ -226,6 +310,94 @@ struct Trend {
   }
 };
 
+// The same over three axes: the fitted axes in any order (``kind``, from
+// the plain version's order), ra and rb the row's z and y terms in the
+// order they are subtracted, m0 the mean with the first of them.
+struct Trend3 {
+  int kind;
+  double mean, ax, m0, ra, rb;
+
+  template <typename T>
+  __device__ __forceinline__ T operator()(T xv, double cj) const {
+    const double v = xv;
+    double d;
+    switch (kind) {
+      case 0: d = dsub(v, mean); break;                                // -
+      case 1: d = dsub(v, m0); break;                                  // r
+      case 2: d = dsub(dsub(v, m0), rb); break;                        // r r
+      case 3: d = dsub(v, dadd(mean, dmul(ax, cj))); break;            // x
+      case 4: d = dsub(dsub(v, dadd(mean, dmul(ax, cj))), ra); break;  // x r
+      case 5:                                                          // x r r
+        d = dsub(dsub(dsub(v, dadd(mean, dmul(ax, cj))), ra), rb);
+        break;
+      case 6: d = dsub(dsub(v, m0), dmul(ax, cj)); break;              // r x
+      case 7: d = dsub(dsub(dsub(v, m0), dmul(ax, cj)), rb); break;    // r x r
+      default: d = dsub(dsub(dsub(v, m0), rb), dmul(ax, cj)); break;   // r r x
+    }
+    T r;
+    round_to(d, r);
+    return r;
+  }
+};
+
+// The window's factor of column j from wx[j]: round_T(wyi * wx[j]) over
+// two axes, round_T(round_T(win * wx[j]) * wout) over three.
+template <typename T>
+struct Win2 {
+  T wyi;
+  __device__ __forceinline__ T operator()(T wj) const { return mul_rn(wyi, wj); }
+};
+
+template <typename T>
+struct Win3 {
+  T win, wout;
+  __device__ __forceinline__ T operator()(T wj) const {
+    return mul_rn(mul_rn(win, wj), wout);
+  }
+};
+
+// One task of the apply pass: n values of a row at p, written to o, less the
+// trend f, times the window's factors wf(w[j]) where w is not null.
+template <typename T, typename F, typename Wf>
+__device__ __forceinline__ void apply_span(const T* __restrict__ p,
+                                           T* __restrict__ o,
+                                           const T* __restrict__ w, int n,
+                                           double c0, int vec, int lane,
+                                           const F& f, const Wf& wf) {
+  constexpr int V = kVec<T>;
+  const int head = vec ? head_of(p, n) : n;
+  const int nv = (n - head) / V;
+  // the window's factors as 16-byte loads where they align with the data's
+  const bool wvec = w && head_of(w + head, V) == 0;
+  for (int j = lane; j < head; j += 32) {
+    const T r = f(p[j], c0 + j);
+    o[j] = w ? mul_rn(r, wf(w[j])) : r;
+  }
+#pragma unroll 4
+  for (int v = lane; v < nv; v += 32) {
+    const int j = head + v * V;
+    T q[V], wj[V];
+    load16_last(p + j, q);
+    if (wvec) {
+      load16(w + j, wj);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) wj[e] = w ? w[j + e] : T(1);
+    }
+    const double c = c0 + j;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const T r = f(q[e], c + e);
+      q[e] = w ? mul_rn(r, wf(wj[e])) : r;
+    }
+    store16_last(o + j, q);
+  }
+  for (int j = head + nv * V + lane; j < n; j += 32) {
+    const T r = f(p[j], c0 + j);
+    o[j] = w ? mul_rn(r, wf(w[j])) : r;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -233,7 +405,6 @@ __global__ void __launch_bounds__(kThreads)
                  const T* __restrict__ wx, long long B, long long tasks,
                  int NY, int NX, int nchunks, int cw, double cy0, double cx0,
                  int parts, double n_el, double css_y, double css_x, int vec) {
-  constexpr int V = kVec<T>;
   const long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (t >= tasks) return;
   const int lane = threadIdx.x & 31;
@@ -253,42 +424,68 @@ __global__ void __launch_bounds__(kThreads)
   f.mean_y = dadd(f.mean, f.trend_y);
   // the window's factor of row i; column j's is wyi * wx[j], rounded to T
   const T wyi = wy ? wy[i] : T(1);
-  const T* w = wx ? wx + k0 : nullptr;
+  apply_span(x + row * NX + k0, out + row * NX + k0, wx ? wx + k0 : nullptr,
+             n, cx0 + k0, vec, lane, f, Win2<T>{wyi});
+}
 
-  const T* p = x + row * NX + k0;
-  T* o = out + row * NX + k0;
-  const double c0 = cx0 + k0;
-  const int head = vec ? head_of(p, n) : n;
-  const int nv = (n - head) / V;
-  // the window's factors as 16-byte loads where they align with the data's
-  const bool wvec = w && head_of(w + head, V) == 0;
-  for (int j = lane; j < head; j += 32) {
-    const T r = f(p[j], c0 + j);
-    o[j] = w ? mul_rn(r, mul_rn(wyi, w[j])) : r;
-  }
-#pragma unroll 4
-  for (int v = lane; v < nv; v += 32) {
-    const int j = head + v * V;
-    T q[V], wj[V];
-    load16_last(p + j, q);
-    if (wvec) {
-      load16(w + j, wj);
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    apply3_kernel(const T* __restrict__ x, T* __restrict__ out,
+                  const double* __restrict__ mom, const T* __restrict__ wz,
+                  const T* __restrict__ wy, const T* __restrict__ wx,
+                  long long B, long long tasks, int NZ, int NY, int NX,
+                  int nchunks, int cw, double cz0, double cy0, double cx0,
+                  int order, int wlast, double n_el, double css_z,
+                  double css_y, double css_x, int vec) {
+  const long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= tasks) return;
+  const int lane = threadIdx.x & 31;
+  long long row;
+  int k0, n;
+  task_of(t, nchunks, cw, NX, row, k0, n);
+  const long long plane = (long long)NZ * NY;
+  const long long b = row / plane;
+  const long long zy = row - b * plane;
+  const int k = (int)(zy / NY);
+  const int i = (int)(zy - (long long)k * NY);
+  Trend3 f;
+  f.mean = __ddiv_rn(mom[b], n_el);
+  f.ax = 0.0;
+  f.ra = f.rb = 0.0;
+  // the fitted axes in the plain version's order, 2 bits each from the
+  // lowest: 1 z, 2 y, 3 x
+  int fitted = 0, rows_fitted = 0, xpos = -1;
+  for (int o = order; o; o >>= 2, ++fitted) {
+    const int a = o & 3;
+    if (a == 3) {
+      xpos = fitted;
+      f.ax = __ddiv_rn(mom[2 * B + b], css_x);
+      continue;
+    }
+    const double r = a == 1 ? dmul(__ddiv_rn(mom[3 * B + b], css_z), cz0 + k)
+                            : dmul(__ddiv_rn(mom[B + b], css_y), cy0 + i);
+    if (rows_fitted++ == 0) {
+      f.ra = r;
     } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) wj[e] = w ? w[j + e] : T(1);
+      f.rb = r;
     }
-    const double c = c0 + j;
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const T r = f(q[e], c + e);
-      q[e] = w ? mul_rn(r, mul_rn(wyi, wj[e])) : r;
-    }
-    store16_last(o + j, q);
   }
-  for (int j = head + nv * V + lane; j < n; j += 32) {
-    const T r = f(p[j], c0 + j);
-    o[j] = w ? mul_rn(r, mul_rn(wyi, w[j])) : r;
+  f.kind = fitted == 0 ? 0
+           : xpos < 0  ? fitted
+           : xpos == 0 ? 2 + fitted
+           : xpos == 1 ? 4 + fitted
+                       : 8;
+  f.m0 = rows_fitted && xpos != 0 ? dadd(f.mean, f.ra) : f.mean;
+  // the window: wlast names the factor multiplied last (0 z, 1 y, 2 x);
+  // the other two are multiplied first
+  T win = T(1), wout = T(1);
+  if (wx) {
+    const T wzk = wz[k], wyi = wy[i];
+    win = wlast == 0 ? wyi : wlast == 1 ? wzk : mul_rn(wzk, wyi);
+    wout = wlast == 0 ? wzk : wlast == 1 ? wyi : T(1);
   }
+  apply_span(x + row * NX + k0, out + row * NX + k0, wx ? wx + k0 : nullptr,
+             n, cx0 + k0, vec, lane, f, Win3<T>{win, wout});
 }
 
 bool bad_shape(long long B, int NY, int NX, int nchunks, int cw) {
@@ -334,6 +531,49 @@ int apply(const void* x, void* out, const void* mom, const void* wy,
   return (int)cudaGetLastError();
 }
 
+// Three axes: B fields of NZ planes of NY rows, as rows to the passes.
+bool bad_shape3(long long B, int NZ, int NY, int NX, int nchunks, int cw) {
+  return NZ < 1 || bad_shape(B, NY, NX, nchunks, cw) ||
+         B > 0x7fffffffLL / kCluster ||
+         (B * NZ * NY * nchunks + kWarps - 1) / kWarps > 0x7fffffffLL;
+}
+
+template <typename T>
+int moments3(const void* x, void* part, void* mom, long long B, int NZ,
+             int NY, int NX, int nchunks, int cw, double cz0, double cy0,
+             double cx0, void* stream) {
+  if (bad_shape3(B, NZ, NY, NX, nchunks, cw))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long tasks = B * NZ * NY * nchunks;
+  moments_rows_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps),
+                           kThreads, 0, s>>>((const T*)x, (double2*)part,
+                                             tasks, NX, nchunks, cw, cx0);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  moments_fields3_kernel<<<(unsigned)(B * kCluster), kFieldThreads, 0, s>>>(
+      (const double2*)part, (double*)mom, B, NZ, NY, nchunks, cz0, cy0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int apply3(const void* x, void* out, const void* mom, const void* wz,
+           const void* wy, const void* wx, long long B, int NZ, int NY,
+           int NX, int nchunks, int cw, double cz0, double cy0, double cx0,
+           int order, int wlast, double n_el, double css_z, double css_y,
+           double css_x, int vec, void* stream) {
+  if (bad_shape3(B, NZ, NY, NX, nchunks, cw) || order < 0 || order >= 64 ||
+      wlast < 0 || wlast > 2 || (wx && (!wy || !wz)))
+    return (int)cudaErrorInvalidValue;
+  const long long tasks = B * NZ * NY * nchunks;
+  apply3_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps), kThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const T*)x, (T*)out, (const double*)mom, (const T*)wz, (const T*)wy,
+      (const T*)wx, B, tasks, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0, order,
+      wlast, n_el, css_z, css_y, css_x, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Passes 1 and 2 (two launches).  x: float32 [B, NY, NX] contiguous; part:
@@ -375,4 +615,53 @@ extern "C" int k6_apply_f64(const void* x, void* out, const void* mom,
                             double css_x, int vec, void* stream) {
   return apply<double>(x, out, mom, wy, wx, B, NY, NX, nchunks, cw, cy0, cx0,
                        parts, n_el, css_y, css_x, vec, stream);
+}
+
+// Over three trailing axes, x: [B, NZ, NY, NX] contiguous.  Passes 1 and 2
+// (two launches): mom float64 [4, B] out (S, Y, X, Z of each field); part
+// as above, B * NZ * NY * nchunks rows.
+extern "C" int k6_moments3_f32(const void* x, void* part, void* mom,
+                               long long B, int NZ, int NY, int NX,
+                               int nchunks, int cw, double cz0, double cy0,
+                               double cx0, void* stream) {
+  return moments3<float>(x, part, mom, B, NZ, NY, NX, nchunks, cw, cz0, cy0,
+                         cx0, stream);
+}
+
+extern "C" int k6_moments3_f64(const void* x, void* part, void* mom,
+                               long long B, int NZ, int NY, int NX,
+                               int nchunks, int cw, double cz0, double cy0,
+                               double cx0, void* stream) {
+  return moments3<double>(x, part, mom, B, NZ, NY, NX, nchunks, cw, cz0, cy0,
+                          cx0, stream);
+}
+
+// Pass 3 over three axes (one launch).  wz [NZ], wy [NY], wx [NX]: the
+// window's factors, all three or none (NULL); order: the fitted axes in the
+// plain version's order, 2 bits each from the lowest (1 z, 2 y, 3 x; 0 for
+// a constant detrend); wlast: the axis whose factor multiplies last, the
+// first of the transform's dims (0 z, 1 y, 2 x); css_z the z coordinate's
+// sum of squares; the rest as k6_apply_*.
+extern "C" int k6_apply3_f32(const void* x, void* out, const void* mom,
+                             const void* wz, const void* wy, const void* wx,
+                             long long B, int NZ, int NY, int NX, int nchunks,
+                             int cw, double cz0, double cy0, double cx0,
+                             int order, int wlast, double n_el, double css_z,
+                             double css_y, double css_x, int vec,
+                             void* stream) {
+  return apply3<float>(x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw,
+                       cz0, cy0, cx0, order, wlast, n_el, css_z, css_y, css_x,
+                       vec, stream);
+}
+
+extern "C" int k6_apply3_f64(const void* x, void* out, const void* mom,
+                             const void* wz, const void* wy, const void* wx,
+                             long long B, int NZ, int NY, int NX, int nchunks,
+                             int cw, double cz0, double cy0, double cx0,
+                             int order, int wlast, double n_el, double css_z,
+                             double css_y, double css_x, int vec,
+                             void* stream) {
+  return apply3<double>(x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw,
+                        cz0, cy0, cx0, order, wlast, n_el, css_z, css_y,
+                        css_x, vec, stream);
 }

@@ -25,11 +25,11 @@ input's sharding.
 
 Every transform's prologue, the detrend and then the window over the same
 dims, is :func:`detrend_and_window`.  On the card, a float32 or float64
-stack detrended over its trailing axis or two goes through kernel K6
+stack detrended over its trailing axis, two or three goes through kernel K6
 (``ops/prologue.py``, ``csrc/prologue.cu``): the same float64 moments and
-trend, summed in another order, in two passes over the data and with no
-float64 copy of it.  Everything else, and everything on the CPU, takes
-:func:`detrend_and_window_plain`, the two steps as torch ops.
+trend, summed in another order, in two passes over the data, with no
+float64 copy of it and no N-D window.  Everything else, and everything on
+the CPU, takes :func:`detrend_and_window_plain`, the two steps as torch ops.
 """
 
 from __future__ import annotations
@@ -68,15 +68,16 @@ def k6_takes(dtype: torch.dtype, device_type: str, shape, axes,
     """Whether K6 (``ops/prologue.py``) runs the prologue of data of
     ``dtype``, ``shape`` (global) and local contiguity on ``device_type``:
     real float32 or float64 CUDA data, non-empty and contiguous, a constant
-    or linear detrend over the trailing axis or the two trailing axes (in
-    either order), and any window or none.  Everything else takes the plain
-    version."""
+    or linear detrend over the trailing axis or the two or three trailing
+    axes (in any order), and any window or none.  Everything else takes the
+    plain version."""
     nd = len(shape)
     return (device_type == "cuda" and dtype in (torch.float32, torch.float64)
             and contiguous and math.prod(shape) > 0
             and detrend_type in ("constant", "linear")
             and (window is None or window is True or window in WINDOW_TYPES)
-            and tuple(sorted(axes)) in ((nd - 1,), (nd - 2, nd - 1)))
+            and tuple(sorted(axes)) in ((nd - 1,), (nd - 2, nd - 1),
+                                        (nd - 3, nd - 2, nd - 1)))
 
 
 def detrend_and_window(da: LabeledArray, dim, detrend_type=None,
@@ -163,7 +164,8 @@ def _k6(da: LabeledArray, dim, axes, linear: bool, window) -> LabeledArray:
             factors[a] = w[lo[a]:lo[a] + xl.shape[a]]
     p = prologue.plan(x.shape, xl.shape, axes, linear, lo)
     y = prologue.detrend_window(
-        xl, p, wy=factors.get(nd - 2), wx=factors.get(nd - 1),
+        xl, p, wz=factors.get(nd - 3), wy=factors.get(nd - 2),
+        wx=factors.get(nd - 1),
         reduce=lambda mom: shards.all_sum(x, mom, axes))
     out = da.copy(data=shards.like(x, y))
     if window is not None or not linear:

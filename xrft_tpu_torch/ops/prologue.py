@@ -28,22 +28,32 @@ _CHUNK = 8192
 
 
 class Plan(NamedTuple):
-    """K6's view of a block as ``x[batch, ny, nx]``: ``ny = 1`` for a
-    detrend over the trailing axis alone; ``cy0``, ``cx0`` the centred coordinates of
-    the block's first row and column; ``parts`` the kernel's code of the
-    plain version's trend parts (0 the mean; 1 and 2 the mean with the row's
-    or the column's slope; 3 the row's first, 4 the column's first);
-    ``n_el`` the values of a field; ``css_y``, ``css_x`` the fit's sums of
-    squares (0 where that axis is not fitted)."""
+    """K6's view of a block as ``x[batch, nz, ny, nx]``, detrended over its
+    ``naxes`` trailing axes: ``nz = 1`` unless over three, ``ny = 1`` over
+    the trailing axis alone; ``cz0``, ``cy0``, ``cx0`` the centred
+    coordinates of the block's first plane, row and column (0 where that
+    axis is not detrended); ``order`` the plain version's trend parts, its
+    fitted axes in the order it subtracts them, 2 bits each from the lowest
+    (1 z, 2 y, 3 x; 0 the mean alone), the first part carrying the mean;
+    ``n_el`` the values of a field; ``css_z``, ``css_y``,
+    ``css_x`` the fit's sums of squares (0 where that axis is not fitted);
+    ``wlast`` over three axes the window factor multiplied last, that of
+    the first detrended axis (0 z, 1 y, 2 x), as the plain version's
+    product of the 1-D factors takes it."""
     batch: int
+    nz: int
     ny: int
     nx: int
+    cz0: float
     cy0: float
     cx0: float
-    parts: int
+    order: int
     n_el: float
+    css_z: float
     css_y: float
     css_x: float
+    naxes: int
+    wlast: int
 
 
 def _css(n: int, n_el: int) -> float:
@@ -55,24 +65,29 @@ def _css(n: int, n_el: int) -> float:
 
 def plan(shape, local_shape, axes, linear: bool, lo) -> Plan:
     """The plan of a detrend over ``axes`` (the trailing axis, or the two
-    trailing ones in either order) of data of global ``shape`` whose block
-    here has ``local_shape`` and starts at global index ``lo[a]`` of each
-    axis ``a`` in ``axes``."""
-    nd = len(shape)
-    row, col = nd - 2, nd - 1
-    two = len(axes) == 2
+    or three trailing ones in any order) of data of global ``shape`` whose
+    block here has ``local_shape`` and starts at global index ``lo[a]`` of
+    each axis ``a`` in ``axes``."""
+    nd, k = len(shape), len(axes)
+    plane, row, col = nd - 3, nd - 2, nd - 1
     n_el = math.prod(shape[a] for a in axes)
     fitted = [a for a in axes if shape[a] > 1] if linear else []
-    parts = {(): 0, (row,): 1, (col,): 2, (row, col): 3,
-             (col, row): 4}[tuple(fitted)]
+    code = {plane: 1, row: 2, col: 3}
+
+    def c0(a):
+        return lo[a] - (shape[a] - 1) / 2.0 if a in axes else 0.0
+
+    def css(a):
+        return _css(shape[a], n_el) if a in fitted else 0.0
+
     return Plan(
-        batch=math.prod(local_shape[:row if two else col]),
-        ny=local_shape[row] if two else 1, nx=local_shape[col],
-        cy0=lo[row] - (shape[row] - 1) / 2.0 if two else 0.0,
-        cx0=lo[col] - (shape[col] - 1) / 2.0,
-        parts=parts, n_el=float(n_el),
-        css_y=_css(shape[row], n_el) if row in fitted else 0.0,
-        css_x=_css(shape[col], n_el) if col in fitted else 0.0)
+        batch=math.prod(local_shape[:nd - k]),
+        nz=local_shape[plane] if k == 3 else 1,
+        ny=local_shape[row] if k >= 2 else 1, nx=local_shape[col],
+        cz0=c0(plane), cy0=c0(row), cx0=c0(col),
+        order=sum(code[a] << 2 * i for i, a in enumerate(fitted)),
+        n_el=float(n_el), css_z=css(plane), css_y=css(row), css_x=css(col),
+        naxes=k, wlast=code[axes[0]] - 1 if k == 3 else 0)
 
 
 def chunking(nx: int) -> tuple[int, int]:
@@ -82,13 +97,27 @@ def chunking(nx: int) -> tuple[int, int]:
     return -(-nx // _CHUNK), min(nx, _CHUNK)
 
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# x, part, mom, B, NY, NX, nchunks, cw, cy0, cx0, stream
-_MOMENTS_ARGS = [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _D, _D, _P]
-# x, out, mom, wy, wx, B, NY, NX, nchunks, cw, cy0, cx0, parts, n_el,
-# css_y, css_x, vec, stream
-_APPLY_ARGS = [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _D, _D,
-               _I, _D, _D, _D, _I, _P]
+# the two-axis apply kernel's code of a Plan's order: 0 the mean, 1 and 2
+# the mean with the row's or the column's slope, 3 the row's first, 4 the
+# column's first
+_PARTS = {0: 0, 2: 1, 3: 2, 2 | 3 << 2: 3, 3 | 2 << 2: 4}
+
+_P, _I, _D, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                  ctypes.c_longlong)
+_ARGS = {
+    # x, part, mom, B, NY, NX, nchunks, cw, cy0, cx0, stream
+    "k6_moments": [_P, _P, _P, _L, _I, _I, _I, _I, _D, _D, _P],
+    # x, out, mom, wy, wx, B, NY, NX, nchunks, cw, cy0, cx0, parts, n_el,
+    # css_y, css_x, vec, stream
+    "k6_apply": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _D, _D, _I, _D, _D,
+                 _D, _I, _P],
+    # x, part, mom, B, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0, stream
+    "k6_moments3": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _D, _D, _D, _P],
+    # x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0,
+    # order, wlast, n_el, css_z, css_y, css_x, vec, stream
+    "k6_apply3": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _D, _D, _D,
+                  _I, _I, _D, _D, _D, _D, _I, _P],
+}
 _fns: dict = {}
 
 
@@ -98,8 +127,7 @@ def _fn(name: str):
         from ._build import load
 
         fn = getattr(load("prologue"), name)
-        fn.argtypes = _MOMENTS_ARGS if name.startswith("k6_moments") \
-            else _APPLY_ARGS
+        fn.argtypes = _ARGS[name.rsplit("_", 1)[0]]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -110,48 +138,67 @@ def _check(err: int, what: str):
         raise RuntimeError(f"K6 {what} launch failed: CUDA error {err}")
 
 
-def detrend_window(x: torch.Tensor, p: Plan, wy=None, wx=None,
+def _ptr(w):
+    return None if w is None else w.data_ptr()
+
+
+def detrend_window(x: torch.Tensor, p: Plan, wz=None, wy=None, wx=None,
                    reduce=None) -> torch.Tensor:
     """K6 on the block ``x`` (CUDA, float32 or float64, contiguous, viewed
-    as ``[p.batch, p.ny, p.nx]``): the trend of ``p`` removed and the window's
-    factors ``wy[p.ny]``, ``wx[p.nx]`` (x's dtype, or None) applied, in x's
-    dtype.  ``reduce(mom)`` sums the float64 moments ``[3, B]`` in place
-    over the ranks that hold the field's other blocks, between the moments
-    (two launches) and the subtraction (one)."""
+    as ``[p.batch, p.nz, p.ny, p.nx]``): the trend of ``p`` removed and the
+    window's factors ``wz[p.nz]``, ``wy[p.ny]``, ``wx[p.nx]`` (x's dtype, or
+    None) applied, in x's dtype.  ``reduce(mom)`` sums the float64 moments
+    ``[3, B]`` (``[4, B]`` over three axes) in place over the ranks that
+    hold the field's other blocks, between the moments (two launches) and
+    the subtraction (one)."""
     if x.device.type != "cuda" or x.dtype not in _SUFFIX \
             or not x.is_contiguous():
         raise ValueError(f"K6 takes a contiguous float32/float64 CUDA "
                          f"tensor, got {x.dtype} on {x.device}")
     sfx = _SUFFIX[x.dtype]
+    three = p.naxes == 3
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    batch, rows = p.batch, p.batch * p.ny
+    batch, rows = p.batch, p.batch * p.nz * p.ny
     nchunks, cw = chunking(p.nx)
     launch = rows * p.nx > 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if launch:
-            mom = torch.empty((3, batch), dtype=torch.float64,
-                              device=x.device)
+            mom = torch.empty((4 if three else 3, batch),
+                              dtype=torch.float64, device=x.device)
             part = torch.empty((rows * nchunks, 2), dtype=torch.float64,
                                device=x.device)
-            _check(_fn(f"k6_moments_{sfx}")(
-                x.data_ptr(), part.data_ptr(), mom.data_ptr(), batch, p.ny,
-                p.nx, nchunks, cw, p.cy0, p.cx0, stream), "moments")
+            if three:
+                err = _fn(f"k6_moments3_{sfx}")(
+                    x.data_ptr(), part.data_ptr(), mom.data_ptr(), batch,
+                    p.nz, p.ny, p.nx, nchunks, cw, p.cz0, p.cy0, p.cx0,
+                    stream)
+            else:
+                err = _fn(f"k6_moments_{sfx}")(
+                    x.data_ptr(), part.data_ptr(), mom.data_ptr(), batch,
+                    p.ny, p.nx, nchunks, cw, p.cy0, p.cx0, stream)
+            _check(err, "moments")
             detrend_window.launches += 2
             del part
         else:
-            mom = torch.zeros((3, batch), dtype=torch.float64,
-                              device=x.device)
+            mom = torch.zeros((4 if three else 3, batch),
+                              dtype=torch.float64, device=x.device)
         if reduce is not None:
             reduce(mom)
         if launch:
             vec = int(x.data_ptr() % 16 == out.data_ptr() % 16)
-            _check(_fn(f"k6_apply_{sfx}")(
-                x.data_ptr(), out.data_ptr(), mom.data_ptr(),
-                None if wy is None else wy.data_ptr(),
-                None if wx is None else wx.data_ptr(), batch, p.ny, p.nx,
-                nchunks, cw, p.cy0, p.cx0, p.parts, p.n_el, p.css_y, p.css_x,
-                vec, stream), "apply")
+            if three:
+                err = _fn(f"k6_apply3_{sfx}")(
+                    x.data_ptr(), out.data_ptr(), mom.data_ptr(), _ptr(wz),
+                    _ptr(wy), _ptr(wx), batch, p.nz, p.ny, p.nx, nchunks, cw,
+                    p.cz0, p.cy0, p.cx0, p.order, p.wlast, p.n_el, p.css_z,
+                    p.css_y, p.css_x, vec, stream)
+            else:
+                err = _fn(f"k6_apply_{sfx}")(
+                    x.data_ptr(), out.data_ptr(), mom.data_ptr(), _ptr(wy),
+                    _ptr(wx), batch, p.ny, p.nx, nchunks, cw, p.cy0, p.cx0,
+                    _PARTS[p.order], p.n_el, p.css_y, p.css_x, vec, stream)
+            _check(err, "apply")
             detrend_window.launches += 1
     return out
 
