@@ -69,7 +69,10 @@ PyTorch version on the card, and drives four paths at full width:
 
 ``python3 chip_smoke.py --prologue`` times the flagship and its prologue
 alone (phase 28's timing), for the package beside the script;
-``python3 chip_smoke.py --k6`` runs phase 29 alone.
+``python3 chip_smoke.py --k6 [DIR]`` runs phase 29 alone, and with DIR,
+another checkout (say the parent commit, unpacked by ``git archive``),
+holds each timed stack's output bit for bit to that checkout's K6 and
+times the two in turns in one process.
 
 It times each path and each kernel beside its plain version, the one
 PyTorch call that computes the same function where there is one, and the
@@ -2295,7 +2298,47 @@ def k6_ptxas(build) -> list:
             if "entry function" in ln or "registers" in ln or "spill" in ln]
 
 
-def k6_phase(xt, build, card):
+def parent_prologue(root):
+    """K6's wrapper (``xrft_tpu_torch/ops/prologue.py``) of the checkout at
+    ``root``, imported beside this tree's as ``parent_ops.prologue`` with
+    the ``ops/_build.py`` that builds its library there."""
+    import importlib
+    import types
+    from pathlib import Path
+
+    ops = Path(root).resolve() / "xrft_tpu_torch" / "ops"
+    if not (ops / "prologue.py").is_file():
+        raise SystemExit(f"chip_smoke: no K6 wrapper at {ops}")
+    pkg = types.ModuleType("parent_ops")
+    pkg.__path__ = [str(ops)]
+    sys.modules["parent_ops"] = pkg
+    return importlib.import_module("parent_ops.prologue")
+
+
+def k6_against(parent, kernel, x, axes, w, label, rounds=5):
+    """``kernel()`` (this tree's K6 on ``x``, the window's factors ``w``)
+    against the parent's K6 on the same input: the outputs bit for bit,
+    then both timed between CUDA events in turns, parent, this, this,
+    parent, ``rounds`` times; the medians in ms."""
+    nd = x.ndim
+    q = parent.plan(x.shape, x.shape, axes, True, {a: 0 for a in axes})
+
+    def theirs():
+        return parent.detrend_window(x, q, wz=w.get(nd - 3), wy=w[nd - 2],
+                                     wx=w[nd - 1])
+
+    check(torch.equal(kernel(), theirs()),
+          f"{label}: the output differs from the parent's")
+    tp, tc = [], []
+    for _ in range(rounds):
+        tp.append(event_ms(theirs, runs=5, warmup=1, batch=5))
+        tc.append(event_ms(kernel, runs=5, warmup=1, batch=5))
+        tc.append(event_ms(kernel, runs=5, warmup=1, batch=5))
+        tp.append(event_ms(theirs, runs=5, warmup=1, batch=5))
+    return statistics.median(tp), statistics.median(tc)
+
+
+def k6_phase(xt, build, card, parent=None):
     """Phase 29: K6 (``csrc/prologue.cu``) through
     ``detrend.detrend_and_window`` against ``detrend_and_window_plain``:
     float32 and float64, constant and linear, hann and no window, SST in
@@ -2308,7 +2351,10 @@ def k6_phase(xt, build, card):
     copied, which blocks), beside the plain version, the bound (the stack
     read once and the FFT's input written once at 3.35 TB/s) and K6's own
     traffic (read twice, written once), and its kernels' device split.
-    Returns the timings' rows."""
+    With ``parent`` (another checkout's ``ops/prologue.py``,
+    :func:`parent_prologue`), each timed stack's output is also held bit
+    for bit to the parent's K6 and both are timed in turns
+    (:func:`k6_against`).  Returns the timings' rows."""
     import importlib
 
     from xrft_tpu_torch.ops import prologue
@@ -2385,6 +2431,14 @@ def k6_phase(xt, build, card):
                      "bound_ms": least,
                      "traffic_bound_ms": bound(3 * value, 0)[0],
                      "device_ms": dev, "rel_err_vs_plain": err})
+        if parent is not None:
+            label = f"phase 29: K6 {shape} {dtype}"
+            t_parent, t_this = k6_against(parent, kernel, x, axes, w, label)
+            rows[-1].update(parent_ms=t_parent, this_ms=t_this)
+            log(f"{label}, back to back in turns: the parent's "
+                f"{t_parent:.3f} ms, this tree's {t_this:.3f} ms "
+                f"({t_this / t_parent - 1:+.2%}); outputs bit for bit "
+                f"equal [{card}]")
         log(f"phase 29: K6 {shape} {dtype}, linear + hann, back to back: "
             f"the kernel alone {t_kernel:.3f} ms ({least / t_kernel:.1%} of "
             f"the bound {least:.3f} ms; {3 * value / t_kernel / 1e6:.0f} "
@@ -2395,9 +2449,10 @@ def k6_phase(xt, build, card):
     return rows
 
 
-def k6_only():
-    """``python3 chip_smoke.py --k6``: phase 29 alone; its last line is the
-    timings' JSON."""
+def k6_only(parent=None):
+    """``python3 chip_smoke.py --k6 [DIR]``: phase 29 alone, against the K6
+    of the checkout at DIR where given; its last line is the timings'
+    JSON."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is false)")
@@ -2407,7 +2462,9 @@ def k6_only():
     card = card_line()
     _build.load("prologue")
     log(f"phase 29: {card}; nvcc {_build.build_seconds}")
-    print(json.dumps(k6_phase(xt, _build, card)), flush=True)
+    if parent is not None:
+        parent = parent_prologue(parent)
+    print(json.dumps(k6_phase(xt, _build, card, parent)), flush=True)
 
 
 def main():
@@ -2747,5 +2804,7 @@ def main():
 
 
 if __name__ == "__main__":
-    {("--prologue",): prologue_only, ("--k6",): k6_only}.get(
-        tuple(sys.argv[1:]), main)()
+    if sys.argv[1:2] == ["--k6"] and len(sys.argv) <= 3:
+        k6_only(*sys.argv[2:])
+    else:
+        {("--prologue",): prologue_only}.get(tuple(sys.argv[1:]), main)()

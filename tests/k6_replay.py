@@ -15,23 +15,27 @@ F64 = torch.float64
 
 def _trend(v, p, mom, cz, cy, cx):
     """v (float64, [B, nz, ny, nx]) less the trend of ``p``: the kernel's
-    float64 operations in its order, each rounded on its own.  The fitted
-    axes come in ``p.order``, 2 bits each (1 z, 2 y, 3 x), the first part
-    with the mean."""
-    mean = (mom[0] / p.n_el)[:, None, None, None]
-    terms = []
-    code = p.order
-    while code:
-        m, css, c = {1: (3, p.css_z, cz), 2: (1, p.css_y, cy),
-                     3: (2, p.css_x, cx)}[code & 3]
-        terms.append((mom[m] / css)[:, None, None, None] * c)
-        code >>= 2
-    if not terms:
-        return v - mean
-    d = v - (mean + terms[0])
-    for t in terms[1:]:
-        d = d - t
-    return d
+    float64 operations in its order, each rounded on its own, from the
+    trend ``prologue.trend_code`` derives from ``p.order`` (a sum of
+    squares of 0: that axis is not fitted)."""
+    kind, zfirst = prologue.trend_code(p.order)
+
+    def field(m):
+        return m[:, None, None, None]
+
+    def slope(m, css):
+        return field(mom[m] / css) if css else 0.0
+
+    mean = field(mom[0] / p.n_el)
+    tz, ty = slope(3, p.css_z) * cz, slope(1, p.css_y) * cy
+    ax = slope(2, p.css_x) * cx
+    ra, rb = (tz, ty) if zfirst else (ty, tz)
+    m0, mx = mean + ra, mean + ax
+    return [lambda: v - mean, lambda: v - m0, lambda: (v - m0) - rb,
+            lambda: v - mx, lambda: (v - mx) - ra,
+            lambda: ((v - mx) - ra) - rb, lambda: (v - m0) - ax,
+            lambda: ((v - m0) - ax) - rb,
+            lambda: ((v - m0) - rb) - ax][kind]()
 
 
 def k6_replay(x, p, wz=None, wy=None, wx=None, reduce=None):
@@ -39,7 +43,8 @@ def k6_replay(x, p, wz=None, wy=None, wx=None, reduce=None):
     detrend_window`'s arguments: the moments in float64 in another order
     than the plain version's, then, per value, the kernel's float64
     operations in its order, each rounded on its own, one rounding to x's
-    dtype, and the window's product in it."""
+    dtype, and the window's product in it: the factors of the last two
+    axes first, that of the first (``p.wlast``) last, a missing factor 1."""
     v = x.reshape(p.batch, p.nz, p.ny, p.nx).double()
     cz = p.cz0 + torch.arange(p.nz, dtype=F64)[:, None, None]
     cy = p.cy0 + torch.arange(p.ny, dtype=F64)[:, None]
@@ -47,19 +52,17 @@ def k6_replay(x, p, wz=None, wy=None, wx=None, reduce=None):
     rows = v.sum(3, keepdim=True)
     mom = torch.stack([rows.sum((1, 2, 3)), (rows * cy).sum((1, 2, 3)),
                        (v * cx).sum((1, 2, 3)), (rows * cz).sum((1, 2, 3))])
-    mom = mom[:4 if p.naxes == 3 else 3].contiguous()
+    mom = mom[:p.moments].contiguous()
     if reduce is not None:
         reduce(mom)
     r = _trend(v, p, mom, cz, cy, cx).to(x.dtype)
     if wx is not None:
-        if p.naxes < 3:
-            w = wx if wy is None else wy[:, None] * wx
-        else:
-            wz, wy = wz[:, None, None], wy[:, None]
-            first, last = {0: (wy * wx, wz), 1: (wz * wx, wy),
-                           2: (wz * wy, wx)}[p.wlast]
-            w = first * last
-        r = r * w
+        one = torch.ones((), dtype=x.dtype)
+        wz = one if wz is None else wz[:, None, None]
+        wy = one if wy is None else wy[:, None]
+        first, last = {0: (wy * wx, wz), 1: (wz * wx, wy),
+                       2: (wz * wy, wx)}[p.wlast]
+        r = r * (first * last)
     k6_replay.launches += 3
     return r.reshape(x.shape)
 

@@ -734,7 +734,9 @@ def _k6_field(cuda, data, shape, seed):
 # shape, detrend dims: the flagship's and GLORYS12's rows, an odd ragged
 # row, a detrend over the trailing axis alone, and few long rows, which K6
 # cuts into chunks of 8192 (128 and 65 a row); over three axes (z, y, x)
-# in two orders, and with rows cut into three chunks
+# in two orders, with rows cut into three chunks (the fields stage's group
+# a warp) and two (a block, striding over a row's chunks), and with 2^16
+# rows a field (a cluster)
 K6_CASES = {"4096": ((2, 4096, 4096), ["y", "x"]),
             "2041x4320": ((2, 2041, 4320), ["y", "x"]),
             "257x1001": ((3, 257, 1001), ["y", "x"]),
@@ -743,7 +745,9 @@ K6_CASES = {"4096": ((2, 4096, 4096), ["y", "x"]),
             "long-2d": ((1, 3, (1 << 19) + 7), ["y", "x"]),
             "3d": ((2, 48, 256, 384), ["z", "y", "x"]),
             "3d-xzy": ((2, 48, 256, 384), ["x", "z", "y"]),
-            "3d-long": ((1, 3, 5, 20011), ["z", "y", "x"])}
+            "3d-long": ((1, 3, 5, 20011), ["z", "y", "x"]),
+            "3d-chunked": ((2, 8, 64, 16001), ["z", "y", "x"]),
+            "3d-cluster": ((1, 64, 1024, 96), ["z", "y", "x"])}
 
 
 @pytest.mark.parametrize("window", ["hann", "tukey", None])

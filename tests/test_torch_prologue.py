@@ -220,18 +220,30 @@ def test_plan_of_a_sharded_block():
     assert (t.order, t.wlast, t.css_z, t.n_el) == (3 | 2 << 2, 2, 0.0, 48.0)
 
 
-@pytest.mark.parametrize("shape,axes,linear,parts", [
-    ((4, 6, 8), (1, 2), True, 3),
-    ((4, 6, 8), (2, 1), True, 4),
-    ((4, 6, 8), (1, 2), False, 0),
-    ((4, 1, 8), (1, 2), True, 2),
-    ((4, 6, 1), (2, 1), True, 1),
-    ((4, 8), (1,), True, 2),
-    ((4, 8), (1,), False, 0),
+@pytest.mark.parametrize("shape,axes,linear,code", [
+    ((4, 6, 8), (1, 2), True, (6, 0)),
+    ((4, 6, 8), (2, 1), True, (4, 0)),
+    ((4, 6, 8), (1, 2), False, (0, 0)),
+    ((4, 1, 8), (1, 2), True, (3, 0)),
+    ((4, 6, 1), (2, 1), True, (1, 0)),
+    ((4, 8), (1,), True, (3, 0)),
+    ((4, 8), (1,), False, (0, 0)),
+    ((2, 4, 6, 8), (1, 2, 3), True, (8, 1)),
+    ((2, 4, 6, 8), (3, 1, 2), True, (5, 1)),
+    ((2, 4, 6, 8), (2, 3, 1), True, (7, 0)),
+    ((2, 4, 6, 8), (2, 1, 3), True, (8, 0)),
+    ((2, 4, 6, 8), (1, 3, 2), True, (7, 1)),
+    ((2, 4, 6, 8), (1, 2, 3), False, (0, 0)),
+    ((4, 1, 6, 8), (3, 1, 2), True, (4, 0)),
+    ((2, 4, 1, 8), (1, 2, 3), True, (6, 1)),
+    ((2, 4, 6, 1), (3, 2, 1), True, (2, 0)),
+    ((2, 4, 1, 1), (1, 2, 3), True, (1, 1)),
 ])
-def test_two_axis_kernel_code_of_each_order(shape, axes, linear, parts):
-    """The two-axis apply kernel's trend code, derived from the plan's
-    fitted order: 1 the row's slope, 2 the column's, 3 the row's first, 4
-    the column's first, length-1 axes left out of the fit."""
+def test_two_axis_kernel_code_of_each_order(shape, axes, linear, code):
+    """The apply kernel's trend, derived once from the plan's fitted order
+    (``trend_code``), over one, two or three axes in any order, length-1
+    axes left out of the fit: its shape (1 r, 2 r r, 3 x, 4 x r, 5 x r r,
+    6 r x, 7 r x r, 8 r r x; x the column's slope, r a row term, the first
+    with the mean) and whether its first row term is z's."""
     p = prologue.plan(shape, shape, axes, linear, {a: 0 for a in axes})
-    assert prologue._PARTS[p.order] == parts
+    assert prologue.trend_code(p.order) == code

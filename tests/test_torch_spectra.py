@@ -269,6 +269,30 @@ def test_window_correction_energy_and_amplitude(window_type):
     npt.assert_allclose(ps.values[i], 0.5 * A ** 2 / 2.0)
 
 
+@pytest.mark.parametrize("scaling", ["density", "spectrum"])
+@pytest.mark.parametrize("shape", [(12, 20), (6, 10, 14)])
+def test_window_correction_without_an_nd_window(monkeypatch, shape,
+                                                scaling):
+    """The window correction of a 2-D and a 3-D spectrum is the N-D
+    window's mean square (density) or squared mean (spectrum), to 1e-14
+    of it, taken from the 1-D factors: no N-D window is built."""
+    from xrft_tpu_torch import spectra
+    from xrft_tpu_torch.ops import window
+
+    def refuse(*a, **k):
+        raise AssertionError("build_window called")
+
+    monkeypatch.setattr(window, "build_window", refuse)
+    dims = ["z", "y", "x"][-len(shape):]
+    da = xt.LabeledArray(torch.zeros(shape, dtype=torch.float64), dims=dims)
+    w = np.ones(())
+    for n in shape:
+        w = np.multiply.outer(w, sps.windows.tukey(n, sym=False))
+    want = np.mean(w ** 2) if scaling == "density" else np.mean(w) ** 2
+    got = spectra._window_correction_factor(da, dims, scaling, "tukey")
+    assert abs(got - want) <= 1e-14 * want
+
+
 def test_window_correction_requires_window():
     e = raises_same("power_spectrum", make_2d(), window=None,
                     window_correction=True)

@@ -8,10 +8,10 @@
 // bytes this kernel moves.  The plain version, and the oracle of this one,
 // is ``detrend.py::_detrended`` followed by ``ops/window.py::apply_window``.
 //
-// Layout: x[B, NY, NX] contiguous, T = float or double: B fields of NY rows
-// of NX values (NY = 1 for a detrend over the trailing axis alone); over
-// three trailing axes x[B, NZ, NY, NX], each field NZ planes of NY rows, the
-// same rows to the passes.  The block may be one rank's stretch of a sharded
+// Layout: x[B, NZ, NY, NX] contiguous, T = float or double: B fields of NZ
+// planes of NY rows of NX values, the rows the passes' unit.  A detrend
+// over one or two trailing axes is the case NZ = 1 (and NY = 1 over the
+// trailing axis alone).  The block may be one rank's stretch of a sharded
 // field: plane k, row i and column j sit at the centred coordinates
 //
 //   c_k = cz0 + k,  c_i = cy0 + i,  c_j = cx0 + j,  c?0 = lo_? - (G? - 1)/2,
@@ -23,28 +23,30 @@
 //      once, 16 bytes a thread, and sums R = sum x and W = sum x c_j in
 //      double registers (never in float: float sums of quantized data far
 //      from zero are biased on the card); part[row, chunk] = (R, W).
-//   2. moments_fields, the tiny stage: one group of threads per field sums
-//      its partials in a fixed order, S = sum R, Y = sum c_i R, X = sum W,
-//      into mom[3, B]; over three axes moments_fields3 adds Z = sum c_k R,
-//      into mom[4, B], one cluster of 8 blocks a field (a 2048^2 plane of
-//      rows gives a million partials: one block would read them serially),
-//      the blocks' sums added in rank order through distributed shared
-//      memory.  No atomics: the same input gives the same bits.  (A
-//      sharded block's mom is summed over the ranks between 2 and 3.)
+//   2. moments_fields, the tiny stage: one group of threads per field
+//      strides over its P = NZ NY nchunks partials in a fixed order and sums
+//      S = sum R, Y = sum c_i R, X = sum W, Z = sum c_k R into mom[nmom, B]
+//      (Z, the fourth row, over three axes only).  The group grows with P:
+//      a warp below 512 partials, a block of 256 threads below 2^16 (the
+//      benchmark's 4096 rows of a field), else a cluster of 8 blocks of 1024
+//      (a 2048^2 plane of rows gives a million partials), the blocks' sums
+//      added in rank order through distributed shared memory.  No atomics:
+//      the same input gives the same bits.  (A sharded block's mom is summed
+//      over the ranks between 2 and 3.)
 //   3. apply: one warp per (row, chunk) reads its values again and writes
 //      the FFT's input once,
-//        mean = S / n, a_y = Y / css_y, a_x = X / css_x,
-//        out  = round_T( round_T(x - trend) * round_T(wy[i] * wx[j]) ),
+//        mean = S / n, a_z = Z / css_z, a_y = Y / css_y, a_x = X / css_x,
+//        out  = round_T( round_T(x - trend) * round_T(round_T(w_b w_c) w_a) ),
 //      the trend subtracted in double in the plain path's parts and order
-//      (``parts``, which ``ops/prologue.py::_PARTS`` derives from the plan's
-//      fitted order): 0 x - mean; 1 x - (mean + a_y c_i); 2 x - (mean + a_x c_j);
-//      3 (x - (mean + a_y c_i)) - a_x c_j; 4 (x - (mean + a_x c_j)) - a_y c_i.
-//      Over three axes (apply3) the fitted axes come in any order, the first
-//      part with the mean (Trend3), and the window's factor is the plain
-//      path's product of the three 1-D factors, the last two of the
-//      transform's dims first: round_T(round_T(w_b w_c) w_a).
-//      Every operation rounds on its own (no FMA contraction), so only the
-//      order of the moments' float64 sums differs from the plain version.
+//      (its shape ``kind``, which ``ops/prologue.py::trend_code`` derives
+//      once from the plan's fitted order; each task's loop over its values
+//      is the one compiled for its shape, with no branch on it: worth 3-7%
+//      of the float32 pass on an H100 against a switch a value), and the
+//      window's factor the plain path's product of the 1-D factors, those
+//      of the transform's last two dims first; a missing factor (fewer
+//      axes) is 1, and multiplying by 1 is exact.  Every operation rounds on
+//      its own (no FMA contraction), so only the order of the moments'
+//      float64 sums differs from the plain version.
 //
 // Bound on Hopper: device memory.  The stack is read twice (a 64 MB field
 // does not fit the 50 MB L2 between the passes) and written once: 12 bytes
@@ -67,6 +69,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// the fields stage's cluster: kCluster blocks of kClusterThreads a field
+constexpr int kCluster = 8;
+constexpr int kClusterThreads = 1024;
 
 template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
@@ -164,171 +169,113 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) part[t] = make_double2(s, w);
 }
 
-// G threads (a warp or the whole block) per field.
+// G threads per field: a warp (32), a block (kThreads) or a cluster
+// (kCluster * kClusterThreads).  Thread r of a field's group takes its
+// partials r, r + G, r + 2G, ..., carrying (plane, row, chunk) along
+// without a division.
 template <int G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(G > kThreads ? kClusterThreads : kThreads)
     moments_fields_kernel(const double2* __restrict__ part,
-                          double* __restrict__ mom, long long B, int NY,
-                          int nchunks, double cy0) {
-  constexpr int kGroups = kThreads / G;
-  const int r = threadIdx.x % G;
-  const long long b = (long long)blockIdx.x * kGroups + threadIdx.x / G;
-  double s = 0.0, y = 0.0, xs = 0.0;
+                          double* __restrict__ mom, long long B, int nmom,
+                          int NY, int nchunks, long long P, double cz0,
+                          double cy0) {
+  constexpr int kBlock = G > kThreads ? kClusterThreads : kThreads;
+  long long b;  // the field
+  int r;        // this thread's rank in the field's group
+  if constexpr (G < kBlock) {
+    b = (long long)blockIdx.x * (kBlock / G) + threadIdx.x / G;
+    r = threadIdx.x % G;
+  } else {
+    b = blockIdx.x / (G / kBlock);
+    r = blockIdx.x % (G / kBlock) * kBlock + threadIdx.x;
+  }
+  double s = 0.0, y = 0.0, xs = 0.0, z = 0.0;
   if (b < B) {
-    const long long P = (long long)NY * nchunks;
     const double2* q = part + b * P;
-    for (long long k = r; k < P; k += G) {
-      const double2 v = q[k];
+    long long row = r / nchunks, k = row / NY;
+    int c = (int)(r - row * nchunks), i = (int)(row - k * NY);
+    const long long drow = G / nchunks, dk = drow / NY;
+    const int dc = (int)(G - drow * nchunks), di = (int)(drow - dk * NY);
+    for (long long t = r; t < P; t += G) {
+      const double2 v = q[t];
       s = dadd(s, v.x);
-      y = __fma_rn(cy0 + (double)(k / nchunks), v.x, y);
+      y = __fma_rn(cy0 + (double)i, v.x, y);
       xs = dadd(xs, v.y);
+      z = __fma_rn(cz0 + (double)k, v.x, z);
+      c += dc;
+      i += di;
+      k += dk;
+      if (c >= nchunks) {
+        c -= nchunks;
+        ++i;
+      }
+      if (i >= NY) {
+        i -= NY;
+        ++k;
+      }
     }
   }
-  s = warp_sum(s);
-  y = warp_sum(y);
-  xs = warp_sum(xs);
-  if (G > 32) {
-    __shared__ double acc[3][kWarps];
-    const int warp = threadIdx.x >> 5;
+  double m[4] = {warp_sum(s), warp_sum(y), warp_sum(xs), warp_sum(z)};
+  if constexpr (G > 32) {  // the block's warps, in order, by its thread 0
+    constexpr int kW = kBlock / 32;
+    __shared__ double acc[4][kW];
     if ((threadIdx.x & 31) == 0) {
-      acc[0][warp] = s;
-      acc[1][warp] = y;
-      acc[2][warp] = xs;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[e][threadIdx.x >> 5] = m[e];
     }
     __syncthreads();
-    if (threadIdx.x != 0) return;
-    s = acc[0][0];
-    y = acc[1][0];
-    xs = acc[2][0];
-    for (int k = 1; k < kWarps; ++k) {
-      s = dadd(s, acc[0][k]);
-      y = dadd(y, acc[1][k]);
-      xs = dadd(xs, acc[2][k]);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        m[e] = acc[e][0];
+        for (int w = 1; w < kW; ++w) m[e] = dadd(m[e], acc[e][w]);
+      }
     }
-  } else if ((threadIdx.x & 31) != 0) {
-    return;
   }
-  if (b < B) {
-    mom[b] = s;
-    mom[B + b] = y;
-    mom[2 * B + b] = xs;
+  if constexpr (G > kBlock) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    __shared__ double sums[4];
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sums[e] = m[e];
+    }
+    cluster.sync();
+    const bool lead = cluster.block_rank() == 0 && threadIdx.x == 0;
+    if (lead) {
+      for (unsigned c = 1; c < kCluster; ++c) {
+        const double* o = cluster.map_shared_rank(sums, c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[e] = dadd(m[e], o[e]);
+      }
+    }
+    cluster.sync();  // no block leaves while rank 0 reads its sums
+    if (!lead) return;
   }
+  if (threadIdx.x % G != 0 || b >= B) return;
+  for (int e = 0; e < nmom; ++e) mom[e * B + b] = m[e];
 }
 
-// Over three axes: one cluster of kCluster blocks per field.  Thread g of
-// the cluster takes the field's rows g, g + G, g + 2G, ... (G its threads),
-// carrying (plane, row) along without a division.
-constexpr int kCluster = 8;
-constexpr int kFieldThreads = 1024;
-
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kFieldThreads)
-    moments_fields3_kernel(const double2* __restrict__ part,
-                           double* __restrict__ mom, long long B, int NZ,
-                           int NY, int nchunks, double cz0, double cy0) {
-  constexpr int kW = kFieldThreads / 32;
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank();
-  const long long b = blockIdx.x / kCluster;
-  const long long rows = (long long)NZ * NY;
-  const double2* q = part + b * rows * nchunks;
-  constexpr long long G = (long long)kCluster * kFieldThreads;
-  long long r = (long long)rank * kFieldThreads + threadIdx.x;
-  long long k = r / NY;
-  int i = (int)(r - k * NY);
-  const long long dk = G / NY;
-  const int di = (int)(G - dk * NY);
-  double s = 0.0, y = 0.0, xs = 0.0, z = 0.0;
-  for (; r < rows; r += G) {
-    double R = 0.0, W = 0.0;
-    for (int c = 0; c < nchunks; ++c) {
-      const double2 v = q[r * nchunks + c];
-      R = dadd(R, v.x);
-      W = dadd(W, v.y);
-    }
-    s = dadd(s, R);
-    y = __fma_rn(cy0 + (double)i, R, y);
-    xs = dadd(xs, W);
-    z = __fma_rn(cz0 + (double)k, R, z);
-    k += dk;
-    i += di;
-    if (i >= NY) {
-      i -= NY;
-      ++k;
-    }
-  }
-  __shared__ double acc[4][kW];
-  __shared__ double sums[4];
-  const double v[4] = {warp_sum(s), warp_sum(y), warp_sum(xs), warp_sum(z)};
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) acc[m][threadIdx.x >> 5] = v[m];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      double t = acc[m][0];
-      for (int w = 1; w < kW; ++w) t = dadd(t, acc[m][w]);
-      sums[m] = t;
-    }
-  }
-  cluster.sync();
-  if (rank == 0 && threadIdx.x == 0) {
-    double t[4] = {sums[0], sums[1], sums[2], sums[3]};
-    for (unsigned c = 1; c < kCluster; ++c) {
-      const double* o = cluster.map_shared_rank(sums, c);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) t[m] = dadd(t[m], o[m]);
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) mom[m * B + b] = t[m];
-  }
-  cluster.sync();  // no block leaves while rank 0 reads its sums
-}
-
-// x's value less the trend, rounded to T, in the plain version's parts.
+// The trend of a row in the plain version's parts: m0 the mean, with the
+// first row term where a row term comes first; ax the column's slope; ra
+// and rb the row's z and y terms in the order they are subtracted.
 struct Trend {
-  int parts;
-  double mean, ax, mean_y, trend_y;
+  double m0, ax, ra, rb;
 
-  template <typename T>
-  __device__ __forceinline__ T operator()(T xv, double cj) const {
+  // x's value less the trend, rounded to T, for the trend's shape K (1-8):
+  // the fitted axes in the plain version's order, x the column's slope and
+  // r a row term (``ops/prologue.py::trend_code``; 0, the mean alone, is 1)
+  template <int K, typename T>
+  __device__ __forceinline__ T of(T xv, double cj) const {
     const double v = xv;
     double d;
-    switch (parts) {
-      case 0: d = dsub(v, mean); break;
-      case 1: d = dsub(v, mean_y); break;
-      case 2: d = dsub(v, dadd(mean, dmul(ax, cj))); break;
-      case 3: d = dsub(dsub(v, mean_y), dmul(ax, cj)); break;
-      default: d = dsub(dsub(v, dadd(mean, dmul(ax, cj))), trend_y); break;
-    }
-    T r;
-    round_to(d, r);
-    return r;
-  }
-};
-
-// The same over three axes: the fitted axes in any order (``kind``, from
-// the plain version's order), ra and rb the row's z and y terms in the
-// order they are subtracted, m0 the mean with the first of them.
-struct Trend3 {
-  int kind;
-  double mean, ax, m0, ra, rb;
-
-  template <typename T>
-  __device__ __forceinline__ T operator()(T xv, double cj) const {
-    const double v = xv;
-    double d;
-    switch (kind) {
-      case 0: d = dsub(v, mean); break;                                // -
+    switch (K) {  // a constant: one case is compiled
       case 1: d = dsub(v, m0); break;                                  // r
       case 2: d = dsub(dsub(v, m0), rb); break;                        // r r
-      case 3: d = dsub(v, dadd(mean, dmul(ax, cj))); break;            // x
-      case 4: d = dsub(dsub(v, dadd(mean, dmul(ax, cj))), ra); break;  // x r
+      case 3: d = dsub(v, dadd(m0, dmul(ax, cj))); break;              // x
+      case 4: d = dsub(dsub(v, dadd(m0, dmul(ax, cj))), ra); break;    // x r
       case 5:                                                          // x r r
-        d = dsub(dsub(dsub(v, dadd(mean, dmul(ax, cj))), ra), rb);
+        d = dsub(dsub(dsub(v, dadd(m0, dmul(ax, cj))), ra), rb);
         break;
       case 6: d = dsub(dsub(v, m0), dmul(ax, cj)); break;              // r x
       case 7: d = dsub(dsub(dsub(v, m0), dmul(ax, cj)), rb); break;    // r x r
@@ -340,16 +287,11 @@ struct Trend3 {
   }
 };
 
-// The window's factor of column j from wx[j]: round_T(wyi * wx[j]) over
-// two axes, round_T(round_T(win * wx[j]) * wout) over three.
+// The window's factor of column j from wx[j]: round_T(round_T(win * wx[j]) *
+// wout), win the product of the row's other two factors or one of them,
+// wout the third or 1.
 template <typename T>
-struct Win2 {
-  T wyi;
-  __device__ __forceinline__ T operator()(T wj) const { return mul_rn(wyi, wj); }
-};
-
-template <typename T>
-struct Win3 {
+struct Win {
   T win, wout;
   __device__ __forceinline__ T operator()(T wj) const {
     return mul_rn(mul_rn(win, wj), wout);
@@ -357,20 +299,22 @@ struct Win3 {
 };
 
 // One task of the apply pass: n values of a row at p, written to o, less the
-// trend f, times the window's factors wf(w[j]) where w is not null.
-template <typename T, typename F, typename Wf>
+// trend f of shape K, times the window's factors wf(w[j]) where w is not
+// null.  K is fixed for the loop, so it holds no branch on the shape.
+template <int K, typename T>
 __device__ __forceinline__ void apply_span(const T* __restrict__ p,
                                            T* __restrict__ o,
                                            const T* __restrict__ w, int n,
                                            double c0, int vec, int lane,
-                                           const F& f, const Wf& wf) {
+                                           const Trend& f,
+                                           const Win<T>& wf) {
   constexpr int V = kVec<T>;
   const int head = vec ? head_of(p, n) : n;
   const int nv = (n - head) / V;
   // the window's factors as 16-byte loads where they align with the data's
   const bool wvec = w && head_of(w + head, V) == 0;
   for (int j = lane; j < head; j += 32) {
-    const T r = f(p[j], c0 + j);
+    const T r = f.template of<K>(p[j], c0 + j);
     o[j] = w ? mul_rn(r, wf(w[j])) : r;
   }
 #pragma unroll 4
@@ -387,13 +331,13 @@ __device__ __forceinline__ void apply_span(const T* __restrict__ p,
     const double c = c0 + j;
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      const T r = f(q[e], c + e);
+      const T r = f.template of<K>(q[e], c + e);
       q[e] = w ? mul_rn(r, wf(wj[e])) : r;
     }
     store16_last(o + j, q);
   }
   for (int j = head + nv * V + lane; j < n; j += 32) {
-    const T r = f(p[j], c0 + j);
+    const T r = f.template of<K>(p[j], c0 + j);
     o[j] = w ? mul_rn(r, wf(w[j])) : r;
   }
 }
@@ -401,267 +345,167 @@ __device__ __forceinline__ void apply_span(const T* __restrict__ p,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     apply_kernel(const T* __restrict__ x, T* __restrict__ out,
-                 const double* __restrict__ mom, const T* __restrict__ wy,
-                 const T* __restrict__ wx, long long B, long long tasks,
-                 int NY, int NX, int nchunks, int cw, double cy0, double cx0,
-                 int parts, double n_el, double css_y, double css_x, int vec) {
+                 const double* __restrict__ mom, const T* __restrict__ wz,
+                 const T* __restrict__ wy, const T* __restrict__ wx,
+                 long long B, long long tasks, int NZ, int NY, int NX,
+                 int nchunks, int cw, double cz0, double cy0, double cx0,
+                 int kind, int zfirst, int wlast, double n_el, double css_z,
+                 double css_y, double css_x, int vec) {
   const long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (t >= tasks) return;
   const int lane = threadIdx.x & 31;
   long long row;
   int k0, n;
   task_of(t, nchunks, cw, NX, row, k0, n);
-  const long long b = row / NY;
-  const int i = (int)(row - b * NY);
-  const bool fit_y = parts == 1 || parts >= 3;
-  const bool fit_x = parts >= 2;
+  const long long bz = row / NY;
+  const int i = (int)(row - bz * NY);
+  const long long b = NZ == 1 ? bz : bz / NZ;  // one plane: no division
+  const int k = (int)(bz - b * NZ);
+  // the row's z and y terms where fitted (a sum of squares of 0: not)
+  const double tz =
+      css_z > 0.0 ? dmul(__ddiv_rn(mom[3 * B + b], css_z), cz0 + k) : 0.0;
+  const double ty =
+      css_y > 0.0 ? dmul(__ddiv_rn(mom[B + b], css_y), cy0 + i) : 0.0;
+  const double mean = __ddiv_rn(mom[b], n_el);
   Trend f;
-  f.parts = parts;
-  f.mean = __ddiv_rn(mom[b], n_el);
-  const double ay = fit_y ? __ddiv_rn(mom[B + b], css_y) : 0.0;
-  f.ax = fit_x ? __ddiv_rn(mom[2 * B + b], css_x) : 0.0;
-  f.trend_y = dmul(ay, cy0 + i);
-  f.mean_y = dadd(f.mean, f.trend_y);
-  // the window's factor of row i; column j's is wyi * wx[j], rounded to T
-  const T wyi = wy ? wy[i] : T(1);
-  apply_span(x + row * NX + k0, out + row * NX + k0, wx ? wx + k0 : nullptr,
-             n, cx0 + k0, vec, lane, f, Win2<T>{wyi});
+  f.ax = css_x > 0.0 ? __ddiv_rn(mom[2 * B + b], css_x) : 0.0;
+  f.ra = zfirst ? tz : ty;
+  f.rb = zfirst ? ty : tz;
+  f.m0 = kind == 1 || kind == 2 || kind >= 6 ? dadd(mean, f.ra) : mean;
+  // the window: wlast names the factor multiplied last (0 z, 1 y, 2 x), the
+  // other two first; a missing factor is 1
+  const T wzk = wz ? wz[k] : T(1), wyi = wy ? wy[i] : T(1);
+  const T win = wlast == 0 ? wyi : wlast == 1 ? wzk : mul_rn(wzk, wyi);
+  const T wout = wlast == 0 ? wzk : wlast == 1 ? wyi : T(1);
+  const Win<T> wf{win, wout};
+  const T* p = x + row * NX + k0;
+  T* o = out + row * NX + k0;
+  const T* w = wx ? wx + k0 : nullptr;
+  const double c0 = cx0 + k0;
+  switch (kind) {
+    case 0:
+    case 1: apply_span<1>(p, o, w, n, c0, vec, lane, f, wf); break;
+    case 2: apply_span<2>(p, o, w, n, c0, vec, lane, f, wf); break;
+    case 3: apply_span<3>(p, o, w, n, c0, vec, lane, f, wf); break;
+    case 4: apply_span<4>(p, o, w, n, c0, vec, lane, f, wf); break;
+    case 5: apply_span<5>(p, o, w, n, c0, vec, lane, f, wf); break;
+    case 6: apply_span<6>(p, o, w, n, c0, vec, lane, f, wf); break;
+    case 7: apply_span<7>(p, o, w, n, c0, vec, lane, f, wf); break;
+    default: apply_span<8>(p, o, w, n, c0, vec, lane, f, wf); break;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    apply3_kernel(const T* __restrict__ x, T* __restrict__ out,
-                  const double* __restrict__ mom, const T* __restrict__ wz,
-                  const T* __restrict__ wy, const T* __restrict__ wx,
-                  long long B, long long tasks, int NZ, int NY, int NX,
-                  int nchunks, int cw, double cz0, double cy0, double cx0,
-                  int order, int wlast, double n_el, double css_z,
-                  double css_y, double css_x, int vec) {
-  const long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (t >= tasks) return;
-  const int lane = threadIdx.x & 31;
-  long long row;
-  int k0, n;
-  task_of(t, nchunks, cw, NX, row, k0, n);
-  const long long plane = (long long)NZ * NY;
-  const long long b = row / plane;
-  const long long zy = row - b * plane;
-  const int k = (int)(zy / NY);
-  const int i = (int)(zy - (long long)k * NY);
-  Trend3 f;
-  f.mean = __ddiv_rn(mom[b], n_el);
-  f.ax = 0.0;
-  f.ra = f.rb = 0.0;
-  // the fitted axes in the plain version's order, 2 bits each from the
-  // lowest: 1 z, 2 y, 3 x
-  int fitted = 0, rows_fitted = 0, xpos = -1;
-  for (int o = order; o; o >>= 2, ++fitted) {
-    const int a = o & 3;
-    if (a == 3) {
-      xpos = fitted;
-      f.ax = __ddiv_rn(mom[2 * B + b], css_x);
-      continue;
-    }
-    const double r = a == 1 ? dmul(__ddiv_rn(mom[3 * B + b], css_z), cz0 + k)
-                            : dmul(__ddiv_rn(mom[B + b], css_y), cy0 + i);
-    if (rows_fitted++ == 0) {
-      f.ra = r;
-    } else {
-      f.rb = r;
-    }
-  }
-  f.kind = fitted == 0 ? 0
-           : xpos < 0  ? fitted
-           : xpos == 0 ? 2 + fitted
-           : xpos == 1 ? 4 + fitted
-                       : 8;
-  f.m0 = rows_fitted && xpos != 0 ? dadd(f.mean, f.ra) : f.mean;
-  // the window: wlast names the factor multiplied last (0 z, 1 y, 2 x);
-  // the other two are multiplied first
-  T win = T(1), wout = T(1);
-  if (wx) {
-    const T wzk = wz[k], wyi = wy[i];
-    win = wlast == 0 ? wyi : wlast == 1 ? wzk : mul_rn(wzk, wyi);
-    wout = wlast == 0 ? wzk : wlast == 1 ? wyi : T(1);
-  }
-  apply_span(x + row * NX + k0, out + row * NX + k0, wx ? wx + k0 : nullptr,
-             n, cx0 + k0, vec, lane, f, Win3<T>{win, wout});
-}
-
-bool bad_shape(long long B, int NY, int NX, int nchunks, int cw) {
-  return B < 1 || NY < 1 || NX < 1 || nchunks < 1 || cw < 1 ||
+bool bad_shape(long long B, int NZ, int NY, int NX, int nchunks, int cw) {
+  return B < 1 || NZ < 1 || NY < 1 || NX < 1 || nchunks < 1 || cw < 1 ||
          (long long)nchunks * cw < NX || (long long)(nchunks - 1) * cw >= NX ||
-         (B * NY * nchunks + kWarps - 1) / kWarps > 0x7fffffffLL;
-}
-
-template <typename T>
-int moments(const void* x, void* part, void* mom, long long B, int NY, int NX,
-            int nchunks, int cw, double cy0, double cx0, void* stream) {
-  if (bad_shape(B, NY, NX, nchunks, cw)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long tasks = B * NY * nchunks;
-  moments_rows_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps),
-                           kThreads, 0, s>>>((const T*)x, (double2*)part,
-                                             tasks, NX, nchunks, cw, cx0);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  if ((long long)NY * nchunks >= 512) {
-    moments_fields_kernel<kThreads><<<(unsigned)B, kThreads, 0, s>>>(
-        (const double2*)part, (double*)mom, B, NY, nchunks, cy0);
-  } else {
-    moments_fields_kernel<32><<<(unsigned)((B + kWarps - 1) / kWarps),
-                                kThreads, 0, s>>>(
-        (const double2*)part, (double*)mom, B, NY, nchunks, cy0);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int apply(const void* x, void* out, const void* mom, const void* wy,
-          const void* wx, long long B, int NY, int NX, int nchunks, int cw,
-          double cy0, double cx0, int parts, double n_el, double css_y,
-          double css_x, int vec, void* stream) {
-  if (bad_shape(B, NY, NX, nchunks, cw) || parts < 0 || parts > 4)
-    return (int)cudaErrorInvalidValue;
-  const long long tasks = B * NY * nchunks;
-  apply_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps), kThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const T*)x, (T*)out, (const double*)mom, (const T*)wy, (const T*)wx, B,
-      tasks, NY, NX, nchunks, cw, cy0, cx0, parts, n_el, css_y, css_x, vec);
-  return (int)cudaGetLastError();
-}
-
-// Three axes: B fields of NZ planes of NY rows, as rows to the passes.
-bool bad_shape3(long long B, int NZ, int NY, int NX, int nchunks, int cw) {
-  return NZ < 1 || bad_shape(B, NY, NX, nchunks, cw) ||
          B > 0x7fffffffLL / kCluster ||
          (B * NZ * NY * nchunks + kWarps - 1) / kWarps > 0x7fffffffLL;
 }
 
 template <typename T>
-int moments3(const void* x, void* part, void* mom, long long B, int NZ,
-             int NY, int NX, int nchunks, int cw, double cz0, double cy0,
-             double cx0, void* stream) {
-  if (bad_shape3(B, NZ, NY, NX, nchunks, cw))
+int moments(const void* x, void* part, void* mom, long long B, int NZ, int NY,
+            int NX, int nchunks, int cw, int nmom, double cz0, double cy0,
+            double cx0, void* stream) {
+  if (bad_shape(B, NZ, NY, NX, nchunks, cw) || nmom < 3 || nmom > 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long tasks = B * NZ * NY * nchunks;
+  const long long P = (long long)NZ * NY * nchunks, tasks = B * P;
   moments_rows_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps),
                            kThreads, 0, s>>>((const T*)x, (double2*)part,
                                              tasks, NX, nchunks, cw, cx0);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  moments_fields3_kernel<<<(unsigned)(B * kCluster), kFieldThreads, 0, s>>>(
-      (const double2*)part, (double*)mom, B, NZ, NY, nchunks, cz0, cy0);
+  const double2* q = (const double2*)part;
+  double* m = (double*)mom;
+  if (P < 512) {
+    moments_fields_kernel<32><<<(unsigned)((B + kWarps - 1) / kWarps),
+                                kThreads, 0, s>>>(q, m, B, nmom, NY, nchunks,
+                                                  P, cz0, cy0);
+  } else if (P < (1 << 16)) {
+    moments_fields_kernel<kThreads><<<(unsigned)B, kThreads, 0, s>>>(
+        q, m, B, nmom, NY, nchunks, P, cz0, cy0);
+  } else {
+    cudaLaunchAttribute cluster = {cudaLaunchAttributeClusterDimension};
+    cluster.val.clusterDim = {kCluster, 1, 1};
+    const cudaLaunchConfig_t cfg = {dim3((unsigned)(B * kCluster)),
+                                    dim3(kClusterThreads), 0, s, &cluster, 1};
+    return (int)cudaLaunchKernelEx(
+        &cfg, moments_fields_kernel<kCluster * kClusterThreads>, q, m, B,
+        nmom, NY, nchunks, P, cz0, cy0);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int apply3(const void* x, void* out, const void* mom, const void* wz,
-           const void* wy, const void* wx, long long B, int NZ, int NY,
-           int NX, int nchunks, int cw, double cz0, double cy0, double cx0,
-           int order, int wlast, double n_el, double css_z, double css_y,
-           double css_x, int vec, void* stream) {
-  if (bad_shape3(B, NZ, NY, NX, nchunks, cw) || order < 0 || order >= 64 ||
-      wlast < 0 || wlast > 2 || (wx && (!wy || !wz)))
+int apply(const void* x, void* out, const void* mom, const void* wz,
+          const void* wy, const void* wx, long long B, int NZ, int NY, int NX,
+          int nchunks, int cw, double cz0, double cy0, double cx0, int kind,
+          int zfirst, int wlast, double n_el, double css_z, double css_y,
+          double css_x, int vec, void* stream) {
+  if (bad_shape(B, NZ, NY, NX, nchunks, cw) || kind < 0 || kind > 8 ||
+      zfirst < 0 || zfirst > 1 || wlast < 0 || wlast > 2 ||
+      (!wx && (wy || wz)))
     return (int)cudaErrorInvalidValue;
   const long long tasks = B * NZ * NY * nchunks;
-  apply3_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps), kThreads, 0,
-                     (cudaStream_t)stream>>>(
+  apply_kernel<T><<<(unsigned)((tasks + kWarps - 1) / kWarps), kThreads, 0,
+                    (cudaStream_t)stream>>>(
       (const T*)x, (T*)out, (const double*)mom, (const T*)wz, (const T*)wy,
-      (const T*)wx, B, tasks, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0, order,
-      wlast, n_el, css_z, css_y, css_x, vec);
+      (const T*)wx, B, tasks, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0, kind,
+      zfirst, wlast, n_el, css_z, css_y, css_x, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Passes 1 and 2 (two launches).  x: float32 [B, NY, NX] contiguous; part:
-// float64 [B * NY * nchunks, 2] scratch; mom: float64 [3, B] out (S, Y, X
-// of each field).  Columns are cut into nchunks chunks of cw (the last
-// shorter, none empty).  Returns the cudaError_t of the launches.
+// Passes 1 and 2 (two launches).  x: float32 [B, NZ, NY, NX] contiguous;
+// part: float64 [B * NZ * NY * nchunks, 2] scratch; mom: float64 [nmom, B]
+// out (S, Y, X, and Z where nmom = 4, of each field).  Columns are cut into
+// nchunks chunks of cw (the last shorter, none empty).  Returns the
+// cudaError_t of the launches.
 extern "C" int k6_moments_f32(const void* x, void* part, void* mom,
-                              long long B, int NY, int NX, int nchunks, int cw,
+                              long long B, int NZ, int NY, int NX,
+                              int nchunks, int cw, int nmom, double cz0,
                               double cy0, double cx0, void* stream) {
-  return moments<float>(x, part, mom, B, NY, NX, nchunks, cw, cy0, cx0,
-                        stream);
+  return moments<float>(x, part, mom, B, NZ, NY, NX, nchunks, cw, nmom, cz0,
+                        cy0, cx0, stream);
 }
 
 extern "C" int k6_moments_f64(const void* x, void* part, void* mom,
-                              long long B, int NY, int NX, int nchunks, int cw,
+                              long long B, int NZ, int NY, int NX,
+                              int nchunks, int cw, int nmom, double cz0,
                               double cy0, double cx0, void* stream) {
-  return moments<double>(x, part, mom, B, NY, NX, nchunks, cw, cy0, cx0,
-                         stream);
+  return moments<double>(x, part, mom, B, NZ, NY, NX, nchunks, cw, nmom, cz0,
+                         cy0, cx0, stream);
 }
 
-// Pass 3 (one launch).  out: like x; mom as summed over the ranks; wy
-// [NY] and wx [NX] the window's factors in x's dtype, or NULL (no window:
-// both; a 1-D window: wy); parts as above; n_el, css_y and css_x the
-// global count and the centred coordinates' sums of squares of the fit;
-// vec = 0 when x and out differ in their 16-byte alignment (scalar I/O).
+// Pass 3 (one launch).  out: like x; mom as summed over the ranks; wz [NZ],
+// wy [NY], wx [NX]: the window's factors in x's dtype, NULL where missing
+// (no window: all three; a missing wz or wy is 1); kind and zfirst: the
+// trend (``ops/prologue.py::trend_code``); wlast: the axis whose factor
+// multiplies last, the first of the transform's dims (0 z, 1 y, 2 x); n_el
+// and css_? the global count and the centred coordinates' sums of squares
+// of the fit (0 where an axis is not fitted); vec = 0 when x and out differ
+// in their 16-byte alignment (scalar I/O).
 extern "C" int k6_apply_f32(const void* x, void* out, const void* mom,
-                            const void* wy, const void* wx, long long B,
-                            int NY, int NX, int nchunks, int cw, double cy0,
-                            double cx0, int parts, double n_el, double css_y,
-                            double css_x, int vec, void* stream) {
-  return apply<float>(x, out, mom, wy, wx, B, NY, NX, nchunks, cw, cy0, cx0,
-                      parts, n_el, css_y, css_x, vec, stream);
+                            const void* wz, const void* wy, const void* wx,
+                            long long B, int NZ, int NY, int NX, int nchunks,
+                            int cw, double cz0, double cy0, double cx0,
+                            int kind, int zfirst, int wlast, double n_el,
+                            double css_z, double css_y, double css_x, int vec,
+                            void* stream) {
+  return apply<float>(x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw,
+                      cz0, cy0, cx0, kind, zfirst, wlast, n_el, css_z, css_y,
+                      css_x, vec, stream);
 }
 
 extern "C" int k6_apply_f64(const void* x, void* out, const void* mom,
-                            const void* wy, const void* wx, long long B,
-                            int NY, int NX, int nchunks, int cw, double cy0,
-                            double cx0, int parts, double n_el, double css_y,
-                            double css_x, int vec, void* stream) {
-  return apply<double>(x, out, mom, wy, wx, B, NY, NX, nchunks, cw, cy0, cx0,
-                       parts, n_el, css_y, css_x, vec, stream);
-}
-
-// Over three trailing axes, x: [B, NZ, NY, NX] contiguous.  Passes 1 and 2
-// (two launches): mom float64 [4, B] out (S, Y, X, Z of each field); part
-// as above, B * NZ * NY * nchunks rows.
-extern "C" int k6_moments3_f32(const void* x, void* part, void* mom,
-                               long long B, int NZ, int NY, int NX,
-                               int nchunks, int cw, double cz0, double cy0,
-                               double cx0, void* stream) {
-  return moments3<float>(x, part, mom, B, NZ, NY, NX, nchunks, cw, cz0, cy0,
-                         cx0, stream);
-}
-
-extern "C" int k6_moments3_f64(const void* x, void* part, void* mom,
-                               long long B, int NZ, int NY, int NX,
-                               int nchunks, int cw, double cz0, double cy0,
-                               double cx0, void* stream) {
-  return moments3<double>(x, part, mom, B, NZ, NY, NX, nchunks, cw, cz0, cy0,
-                          cx0, stream);
-}
-
-// Pass 3 over three axes (one launch).  wz [NZ], wy [NY], wx [NX]: the
-// window's factors, all three or none (NULL); order: the fitted axes in the
-// plain version's order, 2 bits each from the lowest (1 z, 2 y, 3 x; 0 for
-// a constant detrend); wlast: the axis whose factor multiplies last, the
-// first of the transform's dims (0 z, 1 y, 2 x); css_z the z coordinate's
-// sum of squares; the rest as k6_apply_*.
-extern "C" int k6_apply3_f32(const void* x, void* out, const void* mom,
-                             const void* wz, const void* wy, const void* wx,
-                             long long B, int NZ, int NY, int NX, int nchunks,
-                             int cw, double cz0, double cy0, double cx0,
-                             int order, int wlast, double n_el, double css_z,
-                             double css_y, double css_x, int vec,
-                             void* stream) {
-  return apply3<float>(x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw,
-                       cz0, cy0, cx0, order, wlast, n_el, css_z, css_y, css_x,
-                       vec, stream);
-}
-
-extern "C" int k6_apply3_f64(const void* x, void* out, const void* mom,
-                             const void* wz, const void* wy, const void* wx,
-                             long long B, int NZ, int NY, int NX, int nchunks,
-                             int cw, double cz0, double cy0, double cx0,
-                             int order, int wlast, double n_el, double css_z,
-                             double css_y, double css_x, int vec,
-                             void* stream) {
-  return apply3<double>(x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw,
-                        cz0, cy0, cx0, order, wlast, n_el, css_z, css_y,
-                        css_x, vec, stream);
+                            const void* wz, const void* wy, const void* wx,
+                            long long B, int NZ, int NY, int NX, int nchunks,
+                            int cw, double cz0, double cy0, double cx0,
+                            int kind, int zfirst, int wlast, double n_el,
+                            double css_z, double css_y, double css_x, int vec,
+                            void* stream) {
+  return apply<double>(x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw,
+                       cz0, cy0, cx0, kind, zfirst, wlast, n_el, css_z,
+                       css_y, css_x, vec, stream);
 }

@@ -26,13 +26,13 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
-import scipy.signal as sps
 import torch
 
 from . import coords as ce
 from . import telemetry
 from .labeled import LabeledArray
 from .ops import shards
+from .ops.window import correction_factor
 from .spectra import _doubling_vector
 from .transform import (_LAG_NONE_WARNING, _direct_lags, _explicit_lags,
                         _ifft_dims, _ifft_resolved, _norm_dim,
@@ -138,26 +138,14 @@ def ifft64(daft: LabeledArray, spacing_tol: float = 1e-3, dim=None,
 def _hp_scale(da, dim, updated, coords, scaling, window_correction,
               window, strict=True) -> float:
     """The float64 scalar of the hp spectra (``highprec.py:692-716``): the
-    window correction as the product over dims of each 1-D window's mean
-    square (density) or squared mean, times prod(df) (density) or its
-    square.  ``strict=False`` takes the square for any scaling but
-    "density", as ``cross_spectrum_hp`` does."""
+    window correction (``ops/window.correction_factor``), times prod(df)
+    (density) or its square.  ``strict=False`` takes the square for any
+    scaling but "density", as ``cross_spectrum_hp`` does."""
     scale = 1.0
     if scaling == "false_density":
         return scale
     if window_correction:
-        if window is None:
-            raise ValueError(
-                "window_correction can only be applied when windowing is "
-                "turned on."
-            )
-        wfun = getattr(sps.windows, "hann" if window is True else window)
-        corr = 1.0
-        for d in dim:
-            w = np.asarray(wfun(da.sizes[d], sym=False), np.float64)
-            corr *= float(np.mean(w**2)) if scaling == "density" \
-                else float(np.mean(w)) ** 2
-        scale /= corr
+        scale /= correction_factor(da, dim, window, scaling)
     fs = float(np.prod([np.float64(coords[d].attrs["spacing"])
                         for d in updated]))
     if scaling == "density":

@@ -6,7 +6,9 @@ version, ``detrend._detrended`` followed by ``ops/window.apply_window``, for
 the rest (and as its oracle).  :class:`Plan` holds the host's part: the
 block's geometry, which trend parts are fitted in which order, and the
 sums of squares of the centred coordinates, as the plain version computes
-them.
+them; :func:`trend_code` turns the order into the kernel's trend.  One
+pair of kernels takes one, two or three trailing axes: fewer axes are
+the case of one plane (and one row).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Plan", "plan", "chunking", "detrend_window"]
+__all__ = ["Plan", "plan", "chunking", "trend_code", "detrend_window"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # the most columns of a row one warp takes: a longer row is cut into chunks
@@ -37,9 +39,10 @@ class Plan(NamedTuple):
     (1 z, 2 y, 3 x; 0 the mean alone), the first part carrying the mean;
     ``n_el`` the values of a field; ``css_z``, ``css_y``,
     ``css_x`` the fit's sums of squares (0 where that axis is not fitted);
-    ``wlast`` over three axes the window factor multiplied last, that of
-    the first detrended axis (0 z, 1 y, 2 x), as the plain version's
-    product of the 1-D factors takes it."""
+    ``wlast`` the window factor multiplied last, that of the first
+    detrended axis (0 z, 1 y, 2 x), as the plain version's product of the
+    1-D factors takes it; 0 over fewer than three axes, z's factor being
+    1 there."""
     batch: int
     nz: int
     ny: int
@@ -54,6 +57,11 @@ class Plan(NamedTuple):
     css_x: float
     naxes: int
     wlast: int
+
+    @property
+    def moments(self) -> int:
+        """The moments a field: S, Y, X, and Z over three axes."""
+        return 4 if self.naxes == 3 else 3
 
 
 def _css(n: int, n_el: int) -> float:
@@ -97,26 +105,34 @@ def chunking(nx: int) -> tuple[int, int]:
     return -(-nx // _CHUNK), min(nx, _CHUNK)
 
 
-# the two-axis apply kernel's code of a Plan's order: 0 the mean, 1 and 2
-# the mean with the row's or the column's slope, 3 the row's first, 4 the
-# column's first
-_PARTS = {0: 0, 2: 1, 3: 2, 2 | 3 << 2: 3, 3 | 2 << 2: 4}
+# the kernel's trend shapes (``Trend::kind``): the fitted axes in the order
+# subtracted, x the column's slope, r a row's z or y term
+_KINDS = ("", "r", "rr", "x", "xr", "xrr", "rx", "rxr", "rrx")
+
+
+def trend_code(order: int) -> tuple[int, int]:
+    """The apply kernel's trend of a :class:`Plan`'s ``order``, the one
+    place it is decoded: ``(kind, zfirst)``, ``kind`` the index of its shape
+    in ``_KINDS`` (0 the mean alone), ``zfirst`` 1 where its first row term
+    is z's (else y's, and the second, if any, z's)."""
+    axes = []
+    while order:
+        axes.append(order & 3)
+        order >>= 2
+    rows = [a for a in axes if a != 3]
+    kind = _KINDS.index("".join("x" if a == 3 else "r" for a in axes))
+    return kind, int(rows[:1] == [1])
+
 
 _P, _I, _D, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                   ctypes.c_longlong)
 _ARGS = {
-    # x, part, mom, B, NY, NX, nchunks, cw, cy0, cx0, stream
-    "k6_moments": [_P, _P, _P, _L, _I, _I, _I, _I, _D, _D, _P],
-    # x, out, mom, wy, wx, B, NY, NX, nchunks, cw, cy0, cx0, parts, n_el,
-    # css_y, css_x, vec, stream
-    "k6_apply": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _D, _D, _I, _D, _D,
-                 _D, _I, _P],
-    # x, part, mom, B, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0, stream
-    "k6_moments3": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _D, _D, _D, _P],
+    # x, part, mom, B, NZ, NY, NX, nchunks, cw, nmom, cz0, cy0, cx0, stream
+    "k6_moments": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _D, _D, _D, _P],
     # x, out, mom, wz, wy, wx, B, NZ, NY, NX, nchunks, cw, cz0, cy0, cx0,
-    # order, wlast, n_el, css_z, css_y, css_x, vec, stream
-    "k6_apply3": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _D, _D, _D,
-                  _I, _I, _D, _D, _D, _D, _I, _P],
+    # kind, zfirst, wlast, n_el, css_z, css_y, css_x, vec, stream
+    "k6_apply": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _D, _D, _D,
+                 _I, _I, _I, _D, _D, _D, _D, _I, _P],
 }
 _fns: dict = {}
 
@@ -156,49 +172,32 @@ def detrend_window(x: torch.Tensor, p: Plan, wz=None, wy=None, wx=None,
         raise ValueError(f"K6 takes a contiguous float32/float64 CUDA "
                          f"tensor, got {x.dtype} on {x.device}")
     sfx = _SUFFIX[x.dtype]
-    three = p.naxes == 3
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     batch, rows = p.batch, p.batch * p.nz * p.ny
     nchunks, cw = chunking(p.nx)
     launch = rows * p.nx > 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
+        mom = (torch.empty if launch else torch.zeros)(
+            (p.moments, batch), dtype=torch.float64, device=x.device)
         if launch:
-            mom = torch.empty((4 if three else 3, batch),
-                              dtype=torch.float64, device=x.device)
             part = torch.empty((rows * nchunks, 2), dtype=torch.float64,
                                device=x.device)
-            if three:
-                err = _fn(f"k6_moments3_{sfx}")(
-                    x.data_ptr(), part.data_ptr(), mom.data_ptr(), batch,
-                    p.nz, p.ny, p.nx, nchunks, cw, p.cz0, p.cy0, p.cx0,
-                    stream)
-            else:
-                err = _fn(f"k6_moments_{sfx}")(
-                    x.data_ptr(), part.data_ptr(), mom.data_ptr(), batch,
-                    p.ny, p.nx, nchunks, cw, p.cy0, p.cx0, stream)
-            _check(err, "moments")
+            _check(_fn(f"k6_moments_{sfx}")(
+                x.data_ptr(), part.data_ptr(), mom.data_ptr(), batch, p.nz,
+                p.ny, p.nx, nchunks, cw, p.moments, p.cz0, p.cy0, p.cx0,
+                stream), "moments")
             detrend_window.launches += 2
             del part
-        else:
-            mom = torch.zeros((4 if three else 3, batch),
-                              dtype=torch.float64, device=x.device)
         if reduce is not None:
             reduce(mom)
         if launch:
             vec = int(x.data_ptr() % 16 == out.data_ptr() % 16)
-            if three:
-                err = _fn(f"k6_apply3_{sfx}")(
-                    x.data_ptr(), out.data_ptr(), mom.data_ptr(), _ptr(wz),
-                    _ptr(wy), _ptr(wx), batch, p.nz, p.ny, p.nx, nchunks, cw,
-                    p.cz0, p.cy0, p.cx0, p.order, p.wlast, p.n_el, p.css_z,
-                    p.css_y, p.css_x, vec, stream)
-            else:
-                err = _fn(f"k6_apply_{sfx}")(
-                    x.data_ptr(), out.data_ptr(), mom.data_ptr(), _ptr(wy),
-                    _ptr(wx), batch, p.ny, p.nx, nchunks, cw, p.cy0, p.cx0,
-                    _PARTS[p.order], p.n_el, p.css_y, p.css_x, vec, stream)
-            _check(err, "apply")
+            _check(_fn(f"k6_apply_{sfx}")(
+                x.data_ptr(), out.data_ptr(), mom.data_ptr(), _ptr(wz),
+                _ptr(wy), _ptr(wx), batch, p.nz, p.ny, p.nx, nchunks, cw,
+                p.cz0, p.cy0, p.cx0, *trend_code(p.order), p.wlast, p.n_el,
+                p.css_z, p.css_y, p.css_x, vec, stream), "apply")
             detrend_window.launches += 1
     return out
 

@@ -30,6 +30,7 @@ from . import telemetry
 from .config import MIRROR_IMPLS, config
 from .labeled import Coord, LabeledArray
 from .ops import mirror, shards
+from .ops.window import correction_factor, warn_if_true
 from .transform import _dim_coord, _real_flag_warning, _stack_segments, fft
 
 __all__ = ["power_spectrum", "cross_spectrum", "cross_phase", "coherence",
@@ -42,20 +43,12 @@ def _abs2(x: torch.Tensor) -> torch.Tensor:
 
 def _window_correction_factor(da, dim, scaling, window) -> float:
     """density -> mean(window^2); spectrum -> mean(window)^2
-    (``xrft/xrft.py:649-660``), in float64 on the host."""
-    if window is None:
-        raise ValueError(
-            "window_correction can only be applied when windowing is "
-            "turned on."
-        )
-    from .ops.window import build_window
-
-    w = build_window(da, dim, window, dtype=torch.float64,
-                     device="cpu").data
-    if scaling == "density":
-        return float((w ** 2).mean())
-    elif scaling == "spectrum":
-        return float(w.mean()) ** 2
+    (``xrft/xrft.py:649-660``), in float64 on the host from the window's
+    1-D factors (``ops/window.correction_factor``)."""
+    warn_if_true(window)
+    corr = correction_factor(da, _norm_dim_list(da, dim), window, scaling)
+    if scaling in ("density", "spectrum"):
+        return corr
     raise ValueError(f"Unknown {scaling} scaling flag")
 
 

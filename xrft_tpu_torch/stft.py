@@ -22,26 +22,11 @@ import torch
 
 from . import coords as ce
 from .labeled import Coord, LabeledArray
+from .ops.window import window_factor
 from .spectra import _is_real_input, _norm_1d_dim, _stft_plan
 from .transform import _dim_coord, fft, ifft
 
 __all__ = ["stft", "istft"]
-
-
-def _win1d(window, n) -> np.ndarray:
-    import scipy.signal as sps
-
-    from .ops.window import WINDOW_TYPES
-
-    if window is True:
-        window = "hann"
-    if window not in WINDOW_TYPES:
-        raise NotImplementedError(
-            f"Window type {window} not supported. Please adhere to "
-            "scipy.signal.windows for naming convention."
-        )
-    return np.asarray(getattr(sps.windows, window)(n, sym=False),
-                      np.float64)
 
 
 def stft(da, dim=None, seglen=256, segment_overlap=None, window="hann",
@@ -115,7 +100,7 @@ def stft(da, dim=None, seglen=256, segment_overlap=None, window="hann",
              segment_overlap={dim: ov} if ov else None, window=window,
              **kwargs)
 
-    w = _win1d(window, seglen)
+    w = window_factor(window, seglen)
     if scaling == "spectrum":
         s = 1.0 / w.sum()
     elif scaling == "psd":
@@ -211,7 +196,7 @@ def istft(Zxx: LabeledArray, dim=None, seglen=None, segment_overlap=None,
     dx = float(dx)
     t0 = float(at.get("stft_t0", 0.0))
 
-    w = _win1d(window, seglen)
+    w = window_factor(window, seglen)
     nseg = Zxx.sizes[segdim]
     n_full = (nseg - 1) * hop + seglen
 
