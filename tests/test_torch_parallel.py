@@ -404,9 +404,10 @@ def test_sharded_fft_transform_dim_sharded(pool2):
 
 
 def test_sharded_fft_shift_on_sharded_axis(pool2):
-    """A 2-D transform whose chain leaves y sharded: the fftshift and the
-    true-phase ifftshift of y are explicit exchanges, the layout stays the
-    planned one, and a decreasing x coordinate is flipped on its block."""
+    """A 2-D transform whose chain leaves y sharded: the fftshift of y rides
+    the chain's second all_to_all and the true-phase ifftshift of y, before
+    the transform, is an explicit exchange; the layout stays the planned
+    one, and a decreasing x coordinate is flipped on its block."""
     N = 32
     ref, spec = labeled(np.random.RandomState(6).randn(N, 16), ["y", "x"],
                         {"y": np.arange(N) * 0.5,
@@ -419,6 +420,112 @@ def test_sharded_fft_shift_on_sharded_axis(pool2):
     want = planned((N, 16), [0, 1], {0: "p"})
     assert want == {0: "p"}
     assert_layout(res, want)
+
+
+FOLDS = ["fft-two-moves", "fft-one-move", "fft-3d-fp", "psd-roundtrip",
+         "psd-dns-fp", "ifft-inverse", "fft-true-phase", "fft-odd-ranks"]
+
+
+def _fold_cases():
+    """{id: (pool, case, reference, planned layout, tolerance, all_to_alls,
+    all_reduces, chain_shifts)} of the pencil chain's folded shifts."""
+    rng = np.random.RandomState(31)
+    N = 32
+    yx = {"y": np.arange(N) * 0.5, "x": np.arange(16) * 1.0}
+    ref2, spec2 = labeled(rng.randn(N, 16), ["y", "x"], yx)
+    # true_phase, the default, adds an ifftshift before the transform
+    shift = dict(shift=True, true_phase=False, true_amplitude=True)
+    c = rng.randn(N, 48) + 1j * rng.randn(N, 48)
+    cube = rng.randn(16, 16, 8)
+    ref3, spec3 = labeled(cube, ["z", "y", "x"],
+                          {d: np.arange(n) * 1.0
+                           for d, n in zip("zyx", cube.shape)})
+    psd = dict(dim=["y", "x"], window="hann", detrend="linear")
+    refp, specp = labeled(rng.randn(N, N).astype(np.float32), ["y", "x"],
+                          {"y": np.arange(N) * 0.5, "x": np.arange(N) * 0.5})
+    _, specd = dns_cube(16, seed=23)
+    refd, _ = labeled(specd["values"].astype(np.float64), DNS_DIMS,
+                      specd["coords"])
+
+    def fft(ref, **kw):
+        return lambda: xrft_tpu.fft(ref, **kw)
+
+    cases = [
+        # y moves to x and back: the second all_to_all splits y again
+        ("fft-two-moves", "pool2",
+         dict(fn="sharded_fft", mesh="p", arrays=[spec2],
+              dim_shards={"y": "p"}, kwargs=dict(dim=["y", "x"], **shift)),
+         fft(ref2, dim=["y", "x"], **shift), {0: "p"}, None, 2, 0, 1),
+        # x first, resident; then y's one move splits the shifted x
+        ("fft-one-move", "pool2",
+         dict(fn="sharded_fft", mesh="p", arrays=[spec2],
+              dim_shards={"y": "p"}, kwargs=dict(dim=["x", "y"], **shift)),
+         fft(ref2, dim=["x", "y"], **shift), {1: "p"}, None, 1, 0, 1),
+        ("fft-3d-fp", "pool4",
+         dict(fn="sharded_fft", mesh="fp", arrays=[spec3],
+              dim_shards={"z": "fp"},
+              kwargs=dict(dim=["z", "y", "x"], **shift)),
+         fft(ref3, dim=["z", "y", "x"], **shift), {0: "fp"}, None, 2, 0, 1),
+        # y has no destination: the roundtrip's return splits it again;
+        # the mirror's flip along y is its one more all_to_all
+        ("psd-roundtrip", "pool2",
+         dict(fn="sharded_power_spectrum", mesh="p", arrays=[specp],
+              dim_shards={"y": "p"}, kwargs=psd),
+         lambda: xrft_tpu.power_spectrum(refp, **psd), {0: "p"}, None, 3, 1,
+         1),
+        ("psd-dns-fp", "pool4",
+         dict(fn="sharded_power_spectrum", mesh="fp", arrays=[specd],
+              dim_shards={"z": "fp"}, kwargs=DNS_KW),
+         lambda: xrft_tpu.power_spectrum(refd, **DNS_KW), {1: "fp"},
+         DNS_TOL, 3, 1, 1),
+        # the inverse walks the chain back: each move's exchange splits its
+        # transformed axis, so both ifftshifts ride them
+        ("ifft-inverse", "pool2",
+         dict(fn="pencil_fftn", mesh="p", x=c, axes=[0, 1],
+              axis_sharding={0: "p"}, kind="ifft", post_shift_axes=[0, 1],
+              post_kind="ifftshift"),
+         lambda: np.fft.ifftshift(np.fft.ifftn(c)), {0: "p"}, None, 2, 0,
+         2),
+        # the true-phase ifftshift before the transform stays on
+        # shards.take: one all_to_all of its own
+        ("fft-true-phase", "pool2",
+         dict(fn="sharded_fft", mesh="p", arrays=[spec2],
+              dim_shards={"y": "p"},
+              kwargs=dict(shift, dim=["y", "x"], true_phase=True)),
+         fft(ref2, **dict(shift, dim=["y", "x"], true_phase=True)),
+         {0: "p"}, None, 3, 0, 1),
+        # one rank on the mesh axis: half of y is no whole chunk, so its
+        # fftshift stays on shards.take
+        ("fft-odd-ranks", "pool2",
+         dict(fn="sharded_fft", mesh="pu", arrays=[spec2],
+              dim_shards={"y": "u"}, kwargs=dict(dim=["y", "x"], **shift)),
+         fft(ref2, dim=["y", "x"], **shift), {0: "u"}, None, 3, 0, 0),
+    ]
+    return {f[0]: f[1:] for f in cases}
+
+
+@pytest.mark.parametrize("fold", FOLDS)
+def test_chain_folds_the_shift_of_a_split_axis(request, fold):
+    """The shift after the transform of an axis that an exchange of the
+    pencil chain splits again over an even number of ranks rides that
+    exchange: each rank's block is bit for bit the unfolded route's (the
+    chain without the shift, then ``ops.shards``), the values and layout
+    are the unsharded reference's, the spies see the chain's all_to_alls,
+    the mirror's flip and the detrend's all_reduce and nothing for the
+    shift, and ``chain_shifts`` counts the folded axes."""
+    pool, case, ref, layout, rtol, a2a, reduce, folded = \
+        _fold_cases()[fold]
+    res = request.getfixturevalue(pool).run(unfolded=True, **case)
+    for r in res:
+        assert r["same_as_unfolded"] is True
+        assert r["counted"]["chain_shifts"] == folded
+    assert calls(res, "all_to_all_single") == a2a
+    assert calls(res, "all_reduce") == reduce
+    if case["fn"] == "pencil_fftn":
+        assert_values(res[0]["value"], ref())
+    else:
+        assert_labeled(res, ref(), rtol)
+    assert_layout(res, layout)
 
 
 def test_sharded_power_spectrum_2d(pool4):
@@ -1022,7 +1129,8 @@ def test_dns_cell_call_through_k6s_plan(pool4):
         count, sent = _dns_exchanges(x.shape, 4, me)
         assert r["k6_launches"] == 3, me
         assert r["counted"] == {"calls": 1, "exchanges": count,
-                                "exchange_bytes": sent}, me
+                                "exchange_bytes": sent,
+                                "chain_shifts": 1}, me
     want = np.stack([dns_plane(x, {0: 0, 1: k})
                      for k in range(x.shape[1])])[None]
     assert_values(res[0]["value"], want, DNS_TOL)
@@ -1049,8 +1157,9 @@ def _dns_exchanges(shape, parts, me):
     float32 (1, n, n, n) cube, worked out from the plan and the shapes:
     the detrend's one all_reduce of its four float64 moments; one
     all_to_all of the complex64 half spectrum for each planned move, each
-    rank keeping 1 / parts of it; the fftshift of the split z axis; the
-    flip of the mirrored columns of the real PSD along z."""
+    rank keeping 1 / parts of it, the last of which also carries the
+    fftshift of z; the flip of the mirrored columns of the real PSD along
+    z."""
     from xrft_tpu_torch.parallel.pencil import plan_forward_layout
 
     _, n, ny, nx = shape
@@ -1060,12 +1169,9 @@ def _dns_exchanges(shape, parts, me):
     assert final == {1: "fp"}
     block = 8 * int(np.prod(half)) // parts
     moves = sum(s[0] == "move" for s in steps)
-    count = 1 + moves + 2
+    count = 1 + moves + 1
     sent = 2 * (parts - 1) * (4 * 8) // parts
     sent += moves * (block - block // parts)
-    # fftshift of z: rows of (y, half x) complex64
-    sent += _sent_by_take((np.arange(n) - n // 2) % n, n, parts, me,
-                          ny * half[3] * 8)
     # the Hermitian expansion: the mirrored columns of x, flipped along z
     # (rows of (y, mirrored x) float32)
     ks = (np.arange(nx) - nx // 2) % nx
@@ -1085,7 +1191,8 @@ def test_dns_cell_call_counts_its_exchanges(pool4):
     for me, r in enumerate(res):
         count, sent = _dns_exchanges(spec["values"].shape, 4, me)
         assert r["counted"] == {"calls": 1, "exchanges": count,
-                                "exchange_bytes": sent}, me
+                                "exchange_bytes": sent,
+                                "chain_shifts": 1}, me
         assert r["calls"]["all_to_all_single"] + \
             r["calls"]["all_reduce"] == count
     assert _dns_exchanges((1, 2048, 2048, 2048), 4, 0)[1] / 2 ** 30 > 12.0

@@ -599,4 +599,5 @@ def test_one_card_calls_issue_no_exchange(path):
     snap = tm.snapshot()
     assert snap["calls"] == 1
     assert snap["exchanges"] == snap["exchange_bytes"] == 0
+    assert snap["chain_shifts"] == 0
 

@@ -39,13 +39,16 @@ def _make_engine(mesh, dims: tuple, dim_shards: dict, engine=None):
     precision = "hp" if engine == "hp" else None
     name = None if engine == "hp" else engine
 
-    def engine_fn(data, axes, kind):
+    def engine_fn(data, axes, kind, post_shift_axes=(),
+                  post_kind="fftshift"):
         axis_sharding = {
             i: dim_shards.get(d) for i, d in enumerate(dims) if d in dim_shards
         }
         with engine_impl(name):
             return pencil_fftn(data, axes, mesh, axis_sharding, kind,
-                               precision=precision)
+                               precision=precision,
+                               post_shift_axes=post_shift_axes,
+                               post_kind=post_kind)
 
     # advertised so spectra's one-sided route can check that the half
     # (rfft) axis is unsharded and reconstruct the forward chain's output

@@ -24,13 +24,17 @@ kernels K2 (float32) and K4 (float64) ("kernel"), or the matmul engines
 included).  ``config.pencil_overlap_chunks > 1`` splits each
 (all_to_all, FFT) pair into chunks along the largest resident axis and
 issues each chunk's all_to_all asynchronously, so that it runs while the
-previous chunk's FFT does.
+previous chunk's FFT does.  The shift asked after the transform
+(``post_shift_axes``) rides the exchange that splits a transformed axis
+again, as a rotation of which chunk goes to which rank, wherever half the
+axis is a whole number of chunks.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..config import config
 from ..ops import fft_core, shards
 from . import exchange
@@ -122,11 +126,23 @@ def plan_forward_layout(global_shape, axes, axis_sharding, mesh_shape,
     return steps, sharding
 
 
-def _a2a_start(v: torch.Tensor, group, split_axis: int):
+def _a2a_start(v: torch.Tensor, group, split_axis: int,
+               rotate: bool = False):
     """Issue the tiled all_to_all of ``v`` over ``group`` asynchronously:
     the split axis is moved first and made contiguous, so that
-    ``all_to_all_single``'s equal split of dim 0 is the tiled split."""
-    send = v.movedim(split_axis, 0).contiguous()
+    ``all_to_all_single``'s equal split of dim 0 is the tiled split.
+    ``rotate`` writes the send buffer half a turn round the split axis, so
+    that rank j gets chunk j + P/2 (mod P) instead of chunk j: for an even
+    number P of ranks that is the axis's fftshift (and its ifftshift), in
+    the same one copy."""
+    moved = v.movedim(split_axis, 0)
+    if rotate:
+        h = moved.shape[0] // 2
+        send = moved.new_empty(moved.shape)
+        send[:h].copy_(moved[h:])
+        send[h:].copy_(moved[:h])
+    else:
+        send = moved.contiguous()
     recv = torch.empty_like(send)
     return exchange.all_to_all(recv, send, group, async_op=True), recv
 
@@ -153,7 +169,8 @@ def _split_chunks(x, axis, k):
 
 
 def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
-                precision: str | None = None):
+                precision: str | None = None, post_shift_axes=(),
+                post_kind: str = "fftshift"):
     """Distributed N-D FFT of a (globally viewed) array.
 
     Parameters
@@ -173,6 +190,14 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
     precision : None (the data's own dtype) or "hp": complex128 (float64
         for an irfft's output) through the same chain, the port's float64
         path.
+    post_shift_axes, post_kind : axes to ``"fftshift"`` or ``"ifftshift"``
+        after the transform.  The exchange that splits a transformed axis
+        (a move's split axis, a roundtrip's return) over an even number of
+        ranks sends each rank the chunk half a turn away, so that axis's
+        shift costs no exchange of its own (``telemetry``'s
+        ``chain_shifts`` counts those axes); every other axis is shifted
+        after the chain by :mod:`..ops.shards`, locally where it is
+        resident.
 
     Returns a DTensor: the forward kinds in the planned final layout, the
     inverse kinds in the space layout.  The real axis of an 'rfft' is
@@ -231,17 +256,33 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
 
     core_kind = "ifft" if inverse else "fft"
     overlap = max(int(config.pencil_overlap_chunks), 1)
+    shifted = {a % ndim for a in post_shift_axes}
+    transformed, folded = set(), set()
+
+    def folds(split_axis, m):
+        """Whether the exchange that splits the transformed, resident
+        ``split_axis`` over mesh axis ``m`` applies the axis's shift, once:
+        half the axis is a whole number of chunks when the ranks are even
+        in number (the plan splits only axes that divide into them), and
+        every later step moves whole blocks of it or transforms other
+        axes, so the shift stays."""
+        if split_axis in shifted and split_axis not in folded \
+                and sizes[m] % 2 == 0:
+            folded.add(split_axis)
+            return True
+        return False
 
     def fft_local(v, a):
         core = fft_core.fftn if core_kind == "fft" else fft_core.ifftn
         return core(v, [a])
 
     def a2a_fft(v, m, split_axis, concat_axis, fft_axis, banned,
-                fft_first=False):
+                fft_first=False, rotate=False):
         """all_to_all + local FFT (FFT then all_to_all for the inverse
         chain), in ``overlap`` chunks whose exchanges are issued
         asynchronously: chunk i's all_to_all runs while the FFT of chunk
-        i-1 (forward) or chunk i+1 (inverse) does."""
+        i-1 (forward) or chunk i+1 (inverse) does.  ``rotate``: each
+        exchange shifts the split axis (:func:`_a2a_start`)."""
         group, parts = mesh.get_group(m), sizes[m]
         ca = None
         if overlap > 1:
@@ -255,18 +296,19 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
 
         if fft_first:
             done = [fft_local(c, fft_axis) for c in chunks[:1]]
-            pending = [_a2a_start(done[0], group, split_axis)]
+            pending = [_a2a_start(done[0], group, split_axis, rotate)]
             for c in chunks[1:]:
                 done.append(fft_local(c, fft_axis))
-                pending.append(_a2a_start(done[-1], group, split_axis))
+                pending.append(_a2a_start(done[-1], group, split_axis,
+                                          rotate))
             outs = [finish(p, c) for p, c in zip(pending, done)]
         else:
-            pending = [_a2a_start(chunks[0], group, split_axis)]
+            pending = [_a2a_start(chunks[0], group, split_axis, rotate)]
             outs = []
             for i, c in enumerate(chunks):
                 if i + 1 < len(chunks):
                     pending.append(_a2a_start(chunks[i + 1], group,
-                                              split_axis))
+                                              split_axis, rotate))
                 outs.append(fft_local(finish(pending[i], c), fft_axis))
         return outs[0] if len(outs) == 1 else torch.cat(outs, ca)
 
@@ -279,9 +321,11 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
                 # reverse: FFT while `a` is resident, then hand the
                 # sharding back from dest to a
                 return a2a_fft(out, m, split_axis=a, concat_axis=dest,
-                               fft_axis=a, banned={a, dest}, fft_first=True)
+                               fft_axis=a, banned={a, dest}, fft_first=True,
+                               rotate=folds(a, m))
             return a2a_fft(out, m, split_axis=dest, concat_axis=a,
-                           fft_axis=a, banned={a, dest})
+                           fft_axis=a, banned={a, dest},
+                           rotate=dest in transformed and folds(dest, m))
         # round-trip fallback, with zero-padding of the buddy
         _, a, m = step
         group, parts = mesh.get_group(m), sizes[m]
@@ -293,7 +337,8 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
             out = torch.cat([out, out.new_zeros(zeros)], dim=b)
         out = _a2a_finish(_a2a_start(out, group, b), out.shape, parts, b, a)
         out = fft_local(out, a)
-        out = _a2a_finish(_a2a_start(out, group, a), out.shape, parts, a, b)
+        out = _a2a_finish(_a2a_start(out, group, a, folds(a, m)), out.shape,
+                          parts, a, b)
         if pad_amt:
             out = out.narrow(b, 0, orig)
         return out
@@ -304,6 +349,7 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
         out = fft_core.rfftn(out, [ndim - 1])
     for step in order:
         out = run_step(out, step)
+        transformed.add(step[1])
     if kind == "irfft":
         # the chained axes walked back on the half spectrum; the real axis
         # is resident, so its inverse is local
@@ -312,7 +358,15 @@ def pencil_fftn(x, axes, mesh, axis_sharding: dict, kind: str = "fft",
     out_shape = list(chain_shape)
     if kind == "irfft":
         out_shape[-1] = 2 * (shape[-1] - 1)
-    return shards.wrap(mesh, out, layout_out, out_shape)
+    out = shards.wrap(mesh, out, layout_out, out_shape)
+    if folded:
+        telemetry.count("chain_shifts", len(folded))
+    rest = [a for a in post_shift_axes if a % ndim not in folded]
+    if rest:
+        post = shards.fftshift if post_kind == "fftshift" \
+            else shards.ifftshift
+        out = post(out, rest)
+    return out
 
 
 def _rt_buddy(ndim, axis, axis_sharding, local_shape, P_size):

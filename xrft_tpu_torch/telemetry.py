@@ -21,6 +21,9 @@ Counters (integers since the last :func:`reset`):
   (``parallel.exchange``: the pencil's all_to_alls, the shifts' and
   flips' uneven all_to_alls, the all_reduces) and the bytes it sent to
   other ranks in them, its own rows left out;
+- ``chain_shifts``: the transformed axes whose fftshift or ifftshift the
+  pencil chain applied in the exchange that splits them, as a rotation of
+  which chunk goes to which rank (``parallel.pencil_fftn``);
 - ``spans_dropped``: spans left out because the buffer was full.
 
 :func:`snapshot` returns them with what the package already keeps where it
@@ -62,7 +65,7 @@ __all__ = ["span", "begin", "entry", "count", "to_device", "cufft",
 
 COUNTERS = ("calls", "host_syncs", "h2d_bytes", "host_wait_ns",
             "cufft_plans", "prologue_plain_cuda", "exchanges",
-            "exchange_bytes", "spans_dropped")
+            "exchange_bytes", "chain_shifts", "spans_dropped")
 SPAN_LIMIT = 100_000
 
 _lock = threading.Lock()

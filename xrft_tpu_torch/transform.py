@@ -45,9 +45,11 @@ def _run_core(handed, axes, kind, engine, pre_shift_axes=(),
     """The core N-D transform (``xrft_tpu/transform.py:30-52``).  An engine
     name runs :mod:`.ops.fft_core` under the ``fft_impl`` it names
     (``config.engine_impl``), which absorbs or applies the shifts itself.  A
-    callable ``engine(data, axes, kind)`` is the pencil engine of
-    :mod:`.parallel`; it gets explicit shifts here, local on resident axes
-    and one exchange on a sharded one (:mod:`.ops.shards`).  The data come
+    callable ``engine(data, axes, kind, post_shift_axes, post_kind)`` is the
+    pencil engine of :mod:`.parallel`: the shift before the transform is
+    explicit here, local on resident axes and one exchange on a sharded one
+    (:mod:`.ops.shards`); the chain applies the one after it
+    (:func:`.parallel.pencil_fftn`).  The data come
     in a one-item list: the ``"fft"`` kind passes it on to
     :func:`.ops.fft_core.fftn`, which takes them out and converts real data
     to complex with no other reference to them left (the hp path's float64
@@ -56,12 +58,8 @@ def _run_core(handed, axes, kind, engine, pre_shift_axes=(),
         data = handed.pop()
         if pre_shift_axes:
             data = shards.ifftshift(data, list(pre_shift_axes))
-        out = engine(data, axes, kind)
-        if post_shift_axes:
-            post = shards.fftshift if post_kind == "fftshift" \
-                else shards.ifftshift
-            out = post(out, list(post_shift_axes))
-        return out
+        return engine(data, axes, kind, post_shift_axes=post_shift_axes,
+                      post_kind=post_kind)
     if shards.is_sharded(handed[0]):
         raise ValueError(
             "sharded data need the pencil engine: call the sharded_* "
